@@ -8,13 +8,14 @@ Phases, each printing one JSON line:
   1. device  — the card's name, count and `nvidia-smi` power limit;
   2. build   — nvcc builds the hand-written kernels from
                src/repro_torch/kernels/csrc for sm_90a;
-  3. kernels — every kernel of the main path against its plain PyTorch
-               version on the card, at the shapes the main path gives it
-               (the full-size k=8 fat-tree layout, random rates and link
-               values): per-link relative error <= 1e-6 for the scatter
-               (against the plain version evaluated in float64), exact
-               min and rtol 1e-6 product / sum for the gathers, two runs
-               bitwise equal, median CUDA-event time over 25 launches;
+  3. kernels — every kernel of every path below against its plain
+               PyTorch version on the card, at the shapes that path gives
+               it (the full-size k=8 fat-tree layout and the multipath
+               n_wan=4 dumbbell layout, random rates and link values):
+               per-link relative error <= 1e-6 for the scatter (against
+               the plain version evaluated in float64), exact min and
+               rtol 1e-6 product / sum for the gathers, two runs bitwise
+               equal, median CUDA-event time over 25 launches;
   4. main    — the two-DC k=8 fat tree, 100k flows, 8 ECMP paths,
                permutation mix, compiled by the port and run through
                `steady_state(scheme="uno")` on the `pt_cuda` kernels, then
@@ -25,8 +26,11 @@ Phases, each printing one JSON line:
                adaptive load balancing, each on the `cuda` kernels and on
                the plain `reference` path.
 
-Launch counts are zeroed just before phase 4 and read after phase 5; the
-comparisons of phase 3 do not count.  Then a `{"kernels": [...]}` line,
+Every path that phases 4 and 5 drive runs with the launch counts zeroed
+just before it and read just after it; each kernel record carries the
+count of the path it belongs to (`path`), and a path's kernel that was
+never launched in it fails the run.  The comparisons of phase 3 do not
+count.  Then a `{"kernels": [...]}` line,
 the `nvidia-smi` name/power-limit line, and last the contract line
 `{"ok": true, "device": {...}}`.  Any failed check raises and the script
 exits non-zero.  Without a CUDA device, or without the port's sources
@@ -60,6 +64,10 @@ GATHER_RTOL = 1e-6          # product and sum; min must be exact
 BACKEND_RTOL = 1e-4         # cwnd after CHECK_EPOCHS on two backends
 
 RESULTS: dict = {}
+PATHS: dict = {}            # path name -> its launch counts
+MAIN_PATH = "fat_tree:steady_state:pt_cuda"
+FLAT_PATH = "fat_tree:agree:cuda"
+DB_MP_PATH = "dumbbell_mp:uno:cuda"
 
 
 def emit(phase: str, **fields):
@@ -120,17 +128,33 @@ def _rel_err(got, truth):
     return float(torch.max(torch.abs(got[nz] - truth[nz]) / truth[nz].abs()))
 
 
-def kernel_phase(fs, dev):
-    """Every kernel of the main path against its plain version, at the
-    main path's shapes; returns the per-kernel records."""
+def drive(path: str, fn, plain: bool = False):
+    """fn() with every launch count zeroed just before it and read just
+    after it into PATHS[path]; a plain path must launch no kernel."""
+    import torch
+    from repro_torch.kernels import fleet_cuda
+    fleet_cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    PATHS[path] = dict(fleet_cuda.LAUNCHES)
+    check(not plain or not PATHS[path], f"{path} launched {PATHS[path]}")
+    return out
+
+
+def kernel_phase(net, dev, flat_path, pt_path=None, tag=""):
+    """Every kernel that the paths over `net`'s layout launch, against its
+    plain version at that layout's shapes; returns the per-kernel records
+    (`path`: the run whose launch count a record reports, `counter`: the
+    key of that count) and the whole-offered-load errors.  The PathTable
+    kernels are checked when `pt_path` is given."""
     import torch
     from repro_torch.fleetsim import links as L
     from repro_torch.kernels import fleet_cuda as K
     from repro_torch.kernels import ref
 
-    net = fs.net
     lay, pt = net.layout, net.layout.path_table
-    n, p, h = net.routes.shape
+    routes = L._routes3(net)
+    n, p, h = routes.shape
     nl = net.n_links
     g = torch.Generator(device=dev).manual_seed(1234)
     rates = torch.rand(n, device=dev, generator=g) * 12.5
@@ -144,7 +168,8 @@ def kernel_phase(fs, dev):
     packed = ref.pack_link_values(scale, clean, delay)
     records = []
 
-    def scatter_record(name, replaces, use, gather, ptr, v_ext, truth):
+    def scatter_record(use, path, replaces, gather, ptr, v_ext, truth):
+        name = "link_scatter/" + use + tag
         k = ptr.shape[0] - 2
         live = int(ptr[k])
 
@@ -171,7 +196,8 @@ def kernel_phase(fs, dev):
         records.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/fleet_kernels.cu",
-            replaces=replaces, launches=0,
+            replaces=replaces, launches=0, path=path,
+            counter="link_scatter/" + use,
             max_abs_err=float(torch.max(torch.abs(out1 - plain))),
             max_rel_err_f64=rel, bitwise_repeat=bool(torch.equal(out1,
                                                                  out2)),
@@ -186,28 +212,36 @@ def kernel_phase(fs, dev):
         return out1
 
     # the float64 scatter truth of the whole offered load
-    truth_flat = ref.fleet_offered_load_ref(net.routes, rates.double(),
+    truth_flat = ref.fleet_offered_load_ref(routes, rates.double(),
                                             split.double(), nl)
-    scatter_record("link_scatter/flat",
-                   "src/repro/kernels/fleet_pallas.py:113", "flat",
+    scatter_record("flat", flat_path,
+                   "src/repro/kernels/fleet_pallas.py:113",
                    lay.sort_sub, lay.link_ptr, vals, truth_flat)
-    seg = scatter_record("link_scatter/pt_stage1",
-                         "src/repro/kernels/fleet_pallas.py:244",
-                         "pt_stage1", pt.seg_gather.reshape(-1), pt.seg_ptr,
-                         vals, None)
-    scatter_record("link_scatter/pt_stage2",
-                   "src/repro/kernels/fleet_pallas.py:259", "pt_stage2",
-                   pt.lcsr_gather.reshape(-1), pt.llink_ptr, seg, None)
-    # the whole pt_cuda offered load against both float64 oracles
-    got = K.path_table_scatter(pt, sub)
-    truth_pt = ref.fleet_pt_offered_load_ref(
-        pt.pre_id, pt.suf_id, pt.seg_idx, rates.double(), split.double(),
-        nl)
-    rel_pt = max(_rel_err(got[:nl], truth_pt[:nl]),
-                 _rel_err(got[:nl], truth_flat[:nl]))
-    check(rel_pt <= SCATTER_TOL, f"pt_cuda offered load: {rel_pt}")
+    # the whole cuda offered load against the float64 oracle
+    rel = {"cuda": _rel_err(
+        K.link_scatter(lay.pad_idx, sub, nl,
+                       csr=(lay.sort_sub, lay.link_ptr))[:nl],
+        truth_flat[:nl])}
+    if pt_path is not None:
+        seg = scatter_record("pt_stage1", pt_path,
+                             "src/repro/kernels/fleet_pallas.py:244",
+                             pt.seg_gather.reshape(-1), pt.seg_ptr, vals,
+                             None)
+        scatter_record("pt_stage2", pt_path,
+                       "src/repro/kernels/fleet_pallas.py:259",
+                       pt.lcsr_gather.reshape(-1), pt.llink_ptr, seg, None)
+        # the whole pt_cuda offered load against both float64 oracles
+        got = K.path_table_scatter(pt, sub)
+        truth_pt = ref.fleet_pt_offered_load_ref(
+            pt.pre_id, pt.suf_id, pt.seg_idx, rates.double(),
+            split.double(), nl)
+        rel["pt_cuda"] = max(_rel_err(got[:nl], truth_pt[:nl]),
+                             _rel_err(got[:nl], truth_flat[:nl]))
+    for b, err in rel.items():
+        check(err <= SCATTER_TOL, f"{b} offered load{tag}: {err}")
 
-    def gather_record(name, replaces, use, idx):
+    def gather_record(use, path, replaces, idx):
+        name = "link_gathers/" + use + tag
         def kernel():
             return K.row_gathers(idx, packed, use=use)
 
@@ -227,7 +261,8 @@ def kernel_phase(fs, dev):
         records.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/fleet_kernels.cu",
-            replaces=replaces, launches=0,
+            replaces=replaces, launches=0, path=path,
+            counter="link_gathers/" + use,
             max_abs_err=max(float(torch.max(torch.abs(a.reshape(-1) - b)))
                             for a, b in zip(o1, plain)),
             prod_rel_err=prod_err, sum_rel_err=sum_err,
@@ -238,23 +273,28 @@ def kernel_phase(fs, dev):
             bytes=n_bytes, rows=r, hops=hh))
         check(records[-1]["bitwise_repeat"], f"{name}: runs differ")
 
-    gather_record("link_gathers/flat",
-                  "src/repro/kernels/fleet_pallas.py:205", "flat",
+    gather_record("flat", flat_path,
+                  "src/repro/kernels/fleet_pallas.py:205",
                   lay.pad_idx.reshape(n * p, h))
-    gather_record("link_gathers/pt_segments",
-                  "src/repro/kernels/fleet_pallas.py:278", "pt_segments",
-                  pt.seg_idx)
-    # the composed per-subflow results against both oracles
-    for got, want_pt, want_flat in zip(
-            K.path_table_gathers(pt, scale, clean, delay),
-            ref.fleet_pt_gathers_ref(pt.pre_id, pt.suf_id, pt.seg_idx,
-                                     scale, clean, delay),
-            ref.fleet_link_gathers_ref(net.routes, scale, clean, delay)):
-        for want in (want_pt, want_flat):
-            err = float(torch.max(torch.abs(got - want)))
-            check(err <= 1e-6 * max(1.0, float(want.abs().max())),
-                  f"pt_cuda gathers vs oracle: {err}")
-    return records, dict(pt_offered_load_rel_err=rel_pt)
+    flat_oracle = ref.fleet_link_gathers_ref(routes, scale, clean, delay)
+    composed = [("cuda", K.link_gathers(lay.pad_idx, scale, clean, delay),
+                 [flat_oracle])]
+    if pt_path is not None:
+        gather_record("pt_segments", pt_path,
+                      "src/repro/kernels/fleet_pallas.py:278", pt.seg_idx)
+        composed.append((
+            "pt_cuda", K.path_table_gathers(pt, scale, clean, delay),
+            [ref.fleet_pt_gathers_ref(pt.pre_id, pt.suf_id, pt.seg_idx,
+                                      scale, clean, delay), flat_oracle]))
+    # the per-subflow results of each backend against its oracles
+    for b, outs, oracles in composed:
+        for want3 in oracles:
+            for got, want in zip(outs, want3):
+                err = float(torch.max(torch.abs(got - want)))
+                check(err <= 1e-6 * max(1.0, float(want.abs().max())),
+                      f"{b} gathers{tag} vs oracle: {err}")
+    return records, {f"{b}_offered_load_rel_err{tag}": e
+                     for b, e in rel.items()}
 
 
 # ------------------------------------------------------------- phase 4/5
@@ -275,14 +315,16 @@ def _check_state(state, goodput, n, what):
 
 def _backend_agreement(fs, state, backends, epochs):
     """cwnd and mean goodput after `epochs` from one shared state on each
-    backend, relative to the first backend."""
+    backend, relative to the first backend; each backend's run is the
+    path `fat_tree:agree:<backend>`."""
     import torch
     from repro_torch.fleetsim import simulate
     out = {}
     for b in backends:
-        s, traj = simulate(fs.net, fs.params, n_epochs=epochs, state0=state,
-                           is_inter=fs.is_inter, lb=fs.lb, backend=b,
-                           record=True)
+        s, traj = drive(f"fat_tree:agree:{b}", lambda: simulate(
+            fs.net, fs.params, n_epochs=epochs, state0=state,
+            is_inter=fs.is_inter, lb=fs.lb, backend=b, record=True),
+            plain=not b.endswith("cuda"))
         out[b] = (s.cwnd, traj.mean(dim=0))
     cw0, gp0 = out[backends[0]]
     errs = {}
@@ -334,22 +376,19 @@ def profile_step(fs, state, n: int = 20):
 def main_path(fs, dev, spec_s, compile_s, card):
     import torch
     from repro_torch.fleetsim import jain, links as L, steady_state
-    from repro_torch.kernels import fleet_cuda
     n = fs.net.routes.shape[0]
     backend = L._resolve_backend(fs.net, "auto")
     check(backend == "pt_cuda", f"auto resolved to {backend}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    before = dict(fleet_cuda.LAUNCHES)
     t0 = time.perf_counter()
-    state, goodput = steady_state(fs.net, fs.params, n_warm=N_WARM,
-                                  n_meas=N_MEAS, scheme="uno",
-                                  is_inter=fs.is_inter, lb=fs.lb)
-    torch.cuda.synchronize()
+    state, goodput = drive(MAIN_PATH, lambda: steady_state(
+        fs.net, fs.params, n_warm=N_WARM, n_meas=N_MEAS, scheme="uno",
+        is_inter=fs.is_inter, lb=fs.lb))
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     epochs = N_WARM + N_MEAS
-    per_epoch = {k: (v - before.get(k, 0)) / epochs
-                 for k, v in fleet_cuda.LAUNCHES.items()}
+    per_epoch = {k: v / epochs for k, v in PATHS[MAIN_PATH].items()}
     split_err = _check_state(state, goodput, n, "fat tree")
     errs = _backend_agreement(fs, state, ["pt_cuda", "cuda", "pt"],
                               CHECK_EPOCHS)
@@ -363,33 +402,42 @@ def main_path(fs, dev, spec_s, compile_s, card):
          flow_epochs_per_s=n * epochs / wall,
          jain=float(jain(goodput)),
          goodput_sum_bytes_per_ns=float(goodput.double().sum()),
-         peak_mem_bytes=torch.cuda.max_memory_allocated(),
-         split_row_err=split_err, rel_err_vs_pt_cuda=errs,
-         launches_per_epoch=per_epoch, profile=prof)
+         peak_mem_bytes=peak, split_row_err=split_err,
+         rel_err_vs_pt_cuda=errs, launches_per_epoch=per_epoch,
+         launches={k: v for k, v in PATHS.items()
+                   if k.startswith("fat_tree:")}, profile=prof)
 
 
-def dumbbells(dev, card):
+def dumbbell_fs(multipath: bool, dev):
+    from repro_torch.scenarios import dumbbell_scenario, to_fleetsim
+    kw = dict(DUMBBELL, n_wan=4) if multipath else dict(DUMBBELL)
+    spec = dumbbell_scenario(kw.pop("n_intra"), kw.pop("n_inter"),
+                             multipath=multipath, **kw)
+    return to_fleetsim(spec, device=dev)
+
+
+def dumbbells(dev, card, fs_mp):
+    """The four dumbbell runs; each (scheme, backend) run is the path
+    `dumbbell[_mp]:<scheme>:<backend>`.  `fs_mp`: the multipath scenario,
+    already compiled for phase 3."""
     import torch
     from repro_torch.fleetsim import steady_state
-    from repro_torch.scenarios import dumbbell_scenario, to_fleetsim
     runs = [("uno", False), ("gemini", False), ("dctcp", False),
             ("uno", True)]
     out = []
     for scheme, multipath in runs:
-        kw = dict(DUMBBELL, n_wan=4) if multipath else dict(DUMBBELL)
-        spec = dumbbell_scenario(kw.pop("n_intra"), kw.pop("n_inter"),
-                                 multipath=multipath, **kw)
-        fs = to_fleetsim(spec, device=dev)
+        fs = fs_mp if multipath else dumbbell_fs(False, dev)
         n = fs.net.routes.shape[0]
+        name = "dumbbell_mp" if multipath else "dumbbell"
         res = {}
         for backend in ("cuda", "reference"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, goodput = steady_state(
-                fs.net, fs.params, n_warm=DB_WARM, n_meas=DB_MEAS,
-                scheme=scheme, is_inter=fs.is_inter, lb=fs.lb,
-                backend=backend)
-            torch.cuda.synchronize()
+            state, goodput = drive(
+                f"{name}:{scheme}:{backend}", lambda: steady_state(
+                    fs.net, fs.params, n_warm=DB_WARM, n_meas=DB_MEAS,
+                    scheme=scheme, is_inter=fs.is_inter, lb=fs.lb,
+                    backend=backend), plain=backend == "reference")
             res[backend] = (state, goodput, time.perf_counter() - t0)
             _check_state(state, goodput, n, f"dumbbell {scheme}")
         (s_k, g_k, t_k), (s_p, g_p, _) = res["cuda"], res["reference"]
@@ -404,6 +452,7 @@ def dumbbells(dev, card):
         out.append(dict(scheme=scheme, multipath=multipath, n_flows=n,
                         n_links=fs.net.n_links, epochs=epochs,
                         ms_per_epoch=t_k / epochs * 1e3,
+                        launches=PATHS[f"{name}:{scheme}:cuda"],
                         cwnd_rel_err_vs_reference=cw,
                         goodput_rel_err_vs_reference=gp))
     emit("dumbbells", **card, runs=out)
@@ -426,7 +475,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import build, fleet_cuda
+    from repro_torch.kernels import build
     from repro_torch.scenarios import fat_tree_spec, to_fleetsim
 
     dev = torch.device("cuda")
@@ -452,23 +501,25 @@ def main() -> int:
     torch.cuda.synchronize()
     compile_s = time.perf_counter() - t0
 
-    records, extra = kernel_phase(fs, dev)
-    emit("kernels", records=records, **extra)
+    fs_mp = dumbbell_fs(True, dev)
+    records, extra = kernel_phase(fs.net, dev, FLAT_PATH, MAIN_PATH)
+    db_records, db_extra = kernel_phase(fs_mp.net, dev, DB_MP_PATH,
+                                        tag="@dumbbell_mp")
+    records += db_records
+    emit("kernels", records=records, **extra, **db_extra)
 
-    fleet_cuda.reset_launches()
     card = dict(device=kind, nvidia_smi=smi)
     main_path(fs, dev, spec_s, compile_s, card)
-    dumbbells(dev, card)
-    launches = dict(fleet_cuda.LAUNCHES)
+    dumbbells(dev, card, fs_mp)
     for rec in records:
-        rec["launches"] = launches.get(rec["name"], 0)
-        check(rec["launches"] > 0, f"{rec['name']} never launched on the "
-              "main path")
-    RESULTS["launches"] = launches
+        rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
+        check(rec["launches"] > 0, f"{rec['name']} never launched on its "
+              f"path {rec['path']}")
+    RESULTS["launches"] = PATHS
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(RESULTS, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}), flush=True)
     print(smi, flush=True)

@@ -9,7 +9,9 @@ of numpy arrays named as the reference's scenario bundles name them:
 bundle of the reference's sweep service therefore loads unchanged, as does
 a reference `FleetScenario` flattened with ``np.asarray``.
 `state_from_arrays` does the same for a `FleetState`, one array per field.
-Families of slices not ported yet (``rel_*``, ``fault_*``) raise.
+Keys of fields the port does not hold (the reference layout's
+``lay_hop_mask``, ``lay_sort_link``, ``lay_csr_gather``) are ignored;
+families of slices not ported yet (``rel_*``, ``fault_*``) raise.
 """
 from __future__ import annotations
 

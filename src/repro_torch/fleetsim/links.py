@@ -77,14 +77,13 @@ class PathTable(NamedTuple):
 
 
 class RouteLayout(NamedTuple):
-    """Compiled, static per-scenario view of the route tensor."""
+    """Compiled, static per-scenario view of the route tensor: the fields
+    of the reference's `RouteLayout` that the port's backends read (its
+    `hop_mask`, `sort_link` and `csr_gather` serve backends not ported)."""
     pad_idx: torch.Tensor     # (n, p, h) hop link ids, -1 -> L (scratch)
-    hop_mask: torch.Tensor    # (n, p, h) bool: True on real hops
     path_mask: torch.Tensor   # (n, p) bool: True on real paths
     sort_sub: torch.Tensor    # (E,) subflow id per by-link-sorted entry
-    sort_link: torch.Tensor   # (E,) ascending link id per entry
     link_ptr: torch.Tensor    # (L + 2,) CSR offsets into the sorted entries
-    csr_gather: torch.Tensor  # (E/block, block) sort_sub, chunk per row
     path_table: Optional[PathTable] = None
 
 
@@ -252,8 +251,7 @@ def compute_layout(routes, n_links: int, *, block: int = CSR_BLOCK,
     n, p, h = r.shape
     n_sub = n * p
     pad_idx = np.where(r >= 0, r, n_links).astype(np.int32)
-    hop_mask = r >= 0
-    path_mask = hop_mask.any(axis=2)
+    path_mask = (r >= 0).any(axis=2)
     flat_link = pad_idx.reshape(-1)
     flat_sub = (np.arange(n_sub * h, dtype=np.int32) // h).astype(np.int32)
     order = np.argsort(flat_link, kind="stable")
@@ -283,10 +281,8 @@ def compute_layout(routes, n_links: int, *, block: int = CSR_BLOCK,
 
     def t(a):
         return torch.as_tensor(a, device=dev)
-    return RouteLayout(pad_idx=t(pad_idx), hop_mask=t(hop_mask),
-                       path_mask=t(path_mask), sort_sub=t(sort_sub),
-                       sort_link=t(sort_link), link_ptr=t(link_ptr),
-                       csr_gather=t(sort_sub.reshape(n_chunks, block)),
+    return RouteLayout(pad_idx=t(pad_idx), path_mask=t(path_mask),
+                       sort_sub=t(sort_sub), link_ptr=t(link_ptr),
                        path_table=pt)
 
 
@@ -391,13 +387,6 @@ def _link_delay(net: FluidNet, q_phys):
     return q_phys / torch.clamp(net.cap, min=_EPS)
 
 
-def subflow_scale(net: FluidNet, load: torch.Tensor) -> torch.Tensor:
-    """(n, p) goodput/offered ratio: min over hops of cap/load (pad hops
-    report 1.0)."""
-    s = kref.append_identity(_link_scale(net, load), 1.0)
-    return torch.amin(s[_pad_idx(net).long()], dim=2)
-
-
 def step_queues(net: FluidNet, q_phys: torch.Tensor,
                 q_phantom: torch.Tensor, load: torch.Tensor):
     """One forward-Euler epoch of both queue families."""
@@ -418,40 +407,10 @@ def mark_prob(net: FluidNet, q_phys: torch.Tensor,
                        0.0, 1.0)
 
 
-def subflow_mark_frac(net: FluidNet, p_link: torch.Tensor) -> torch.Tensor:
-    """(n, p) mark fraction: 1 - prod over hops of (1 - p)."""
-    clean = kref.append_identity(1.0 - p_link, 1.0)
-    return 1.0 - torch.prod(clean[_pad_idx(net).long()], dim=2)
-
-
-def subflow_delay(net: FluidNet, q_phys: torch.Tensor) -> torch.Tensor:
-    """(n, p) relative queueing delay: sum of q/cap (ns)."""
-    d = kref.append_identity(_link_delay(net, q_phys), 0.0)
-    return torch.sum(d[_pad_idx(net).long()], dim=2)
-
-
 def subflow_loss_frac(net: FluidNet, p_drop: torch.Tensor) -> torch.Tensor:
     """(n, p) loss fraction: 1 - prod over hops of (1 - p_drop)."""
     keep = kref.append_identity(1.0 - p_drop, 1.0)
     return 1.0 - torch.prod(keep[_pad_idx(net).long()], dim=2)
-
-
-def _pt_gathers(net: FluidNet, load, p_link, q_phys):
-    """The three gathers through the PathTable: each reduction runs once
-    per unique segment over the (U, hseg) table, then two (n, p) takes
-    compose the prefix and suffix halves per subflow."""
-    pt = net.layout.path_table
-    si = pt.seg_idx.long()
-    s = kref.append_identity(_link_scale(net, load), 1.0)
-    clean = kref.append_identity(1.0 - p_link, 1.0)
-    d = kref.append_identity(_link_delay(net, q_phys), 0.0)
-    seg_scale = torch.amin(s[si], dim=1)
-    seg_clean = torch.prod(clean[si], dim=1)
-    seg_delay = torch.sum(d[si], dim=1)
-    pre, suf = pt.pre_id.long(), pt.suf_id.long()
-    return (torch.minimum(seg_scale[pre], seg_scale[suf]),
-            1.0 - seg_clean[pre] * seg_clean[suf],
-            seg_delay[pre] + seg_delay[suf])
 
 
 def _pt_loss_frac(net: FluidNet, p_drop: torch.Tensor) -> torch.Tensor:
@@ -459,7 +418,7 @@ def _pt_loss_frac(net: FluidNet, p_drop: torch.Tensor) -> torch.Tensor:
     pt = net.layout.path_table
     keep = kref.append_identity(1.0 - p_drop, 1.0)
     seg_keep = torch.prod(keep[pt.seg_idx.long()], dim=1)
-    return 1.0 - seg_keep[pt.pre_id.long()] * seg_keep[pt.suf_id.long()]
+    return 1.0 - kref.compose_clean(pt.pre_id, pt.suf_id, seg_keep)
 
 
 def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
@@ -479,21 +438,21 @@ def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
     q_phys, q_phantom = step_queues(net, q_phys, q_phantom, load)
     p_link = mark_prob(net, q_phys, q_phantom)
     compressed = rb in ("pt", "pt_cuda")
+    scale = _link_scale(net, load)
+    clean = 1.0 - p_link
+    delay = _link_delay(net, q_phys)
+    pt = None if net.layout is None else net.layout.path_table
     if rb == "cuda":
-        sub_scale, sub_frac, sub_delay = fleet_cuda.link_gathers(
-            _pad_idx(net), _link_scale(net, load), 1.0 - p_link,
-            _link_delay(net, q_phys))
+        gathers = fleet_cuda.link_gathers(_pad_idx(net), scale, clean, delay)
     elif rb == "pt_cuda":
-        sub_scale, sub_frac, sub_delay = fleet_cuda.path_table_gathers(
-            net.layout.path_table, _link_scale(net, load), 1.0 - p_link,
-            _link_delay(net, q_phys))
+        gathers = fleet_cuda.path_table_gathers(pt, scale, clean, delay)
     elif rb == "pt":
-        sub_scale, sub_frac, sub_delay = _pt_gathers(net, load, p_link,
-                                                     q_phys)
+        gathers = kref.fleet_pt_gathers_ref(pt.pre_id, pt.suf_id, pt.seg_idx,
+                                            scale, clean, delay)
     else:
-        sub_scale = subflow_scale(net, load)
-        sub_frac = subflow_mark_frac(net, p_link)
-        sub_delay = subflow_delay(net, q_phys)
+        gathers = kref.fleet_link_gathers_ref(_routes3(net), scale, clean,
+                                              delay)
+    sub_scale, sub_frac, sub_delay = gathers
     if net.p_loss is not None:
         loss_frac = _pt_loss_frac if compressed else subflow_loss_frac
         sub_scale = sub_scale * (1.0 - loss_frac(net, net.p_loss))

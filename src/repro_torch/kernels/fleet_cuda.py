@@ -187,8 +187,5 @@ def path_table_gathers(pt, scale, clean, delay):
     packed = ref.pack_link_values(scale, clean, delay)
     seg_scale, seg_frac, seg_delay = row_gathers(pt.seg_idx, packed,
                                                  use="pt_segments")
-    seg_clean = 1.0 - seg_frac
-    pre, suf = pt.pre_id.long(), pt.suf_id.long()
-    return (torch.minimum(seg_scale[pre], seg_scale[suf]),
-            1.0 - seg_clean[pre] * seg_clean[suf],
-            seg_delay[pre] + seg_delay[suf])
+    return ref.compose_segments(pt.pre_id, pt.suf_id, seg_scale,
+                                1.0 - seg_frac, seg_delay)

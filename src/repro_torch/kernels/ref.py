@@ -67,18 +67,30 @@ def fleet_pt_offered_load_ref(pre_id, suf_id, seg_idx, rates, split,
     return buf.index_add_(0, seg_idx.reshape(-1).long(), per_hop)
 
 
+def compose_clean(pre_id, suf_id, seg_clean):
+    """(n, p) product of each subflow's prefix and suffix segment values."""
+    return seg_clean[pre_id.long()] * seg_clean[suf_id.long()]
+
+
+def compose_segments(pre_id, suf_id, seg_scale, seg_clean, seg_delay):
+    """Per-unique-segment reductions composed per subflow across its
+    prefix/suffix split: min of scales, 1 - product of the clean
+    probabilities, sum of delays.  Each output is (n_flows, n_paths)."""
+    pre, suf = pre_id.long(), suf_id.long()
+    return (torch.minimum(seg_scale[pre], seg_scale[suf]),
+            1.0 - compose_clean(pre, suf, seg_clean),
+            seg_delay[pre] + seg_delay[suf])
+
+
 def fleet_pt_gathers_ref(pre_id, suf_id, seg_idx, scale, clean, delay):
     """Per-unique-segment reductions composed per subflow across the
     prefix/suffix split.  Same return contract as
     `fleet_link_gathers_ref`."""
     si = seg_idx.long()
-    seg_scale = torch.amin(append_identity(scale, 1.0)[si], dim=1)
-    seg_clean = torch.prod(append_identity(clean, 1.0)[si], dim=1)
-    seg_delay = torch.sum(append_identity(delay, 0.0)[si], dim=1)
-    pre, suf = pre_id.long(), suf_id.long()
-    return (torch.minimum(seg_scale[pre], seg_scale[suf]),
-            1.0 - seg_clean[pre] * seg_clean[suf],
-            seg_delay[pre] + seg_delay[suf])
+    return compose_segments(
+        pre_id, suf_id, torch.amin(append_identity(scale, 1.0)[si], dim=1),
+        torch.prod(append_identity(clean, 1.0)[si], dim=1),
+        torch.sum(append_identity(delay, 0.0)[si], dim=1))
 
 
 # ----------------------------------------- the kernels' own plain versions
