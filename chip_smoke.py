@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
 
   1. device  — the card's name, count and `nvidia-smi` power limit;
   2. build   — nvcc builds the hand-written kernels from
-               src/repro_torch/kernels/csrc for sm_90a;
+               src/repro_torch/kernels/csrc for sm_90a, one library per
+               source (fleet_kernels.cu, unorc_kernels.cu), in parallel;
   3. kernels — every kernel of every path below against its plain
                PyTorch version on the card, at the shapes that path gives
                it (the full-size k=8 fat-tree layout and the multipath
@@ -24,9 +25,25 @@ Phases, each printing one JSON line:
   5. dumbbells — the 100k-flow dumbbell (1,562 bottlenecks) under uno,
                gemini and dctcp, and its multipath n_wan=4 variant with
                adaptive load balancing, each on the `cuda` kernels and on
-               the plain `reference` path.
+               the plain `reference` path;
+  6. unorc_kernels — the UnoRC kernels against their plain versions on
+               the card at the shapes of one p = 2 chunk of smollm-135m's
+               full gradient (2 pods x 16,816,128 f32): K3 encode and
+               decode (rows {0, 1} from the survivors), K4 quant (zero
+               blocks included), K5 dequant and its fused add, all
+               bitwise, two runs bitwise equal, median CUDA-event time
+               over 25 launches; and all 55 erasure patterns of at most
+               two of the ten RS(8, 2) rows recovered bitwise;
+  7. unorc_sync — `make_uno_grad_sync` over smollm-135m's whole
+               134,515,008-parameter bf16 gradient at p = 2 (pairwise)
+               and p = 4 (ring), on the kernels and on the plain backend:
+               outputs finite with their dtypes and shapes, kernel run
+               bitwise equal to the plain run and to a second kernel run,
+               p = 2 within the int8 bound of the float64 pod mean, p = 4
+               within 5 % of it; ms per sync, payload GB/s, peak memory
+               and the DCI byte accounting.
 
-Every path that phases 4 and 5 drive runs with the launch counts zeroed
+Every path that phases 4, 5 and 7 drive runs with the launch counts zeroed
 just before it and read just after it; each kernel record carries the
 count of the path it belongs to (`path`), and a path's kernel that was
 never launched in it fails the run.  The comparisons of phase 3 do not
@@ -62,6 +79,13 @@ TIMED_LAUNCHES = 25
 SCATTER_TOL = 1e-6          # per-link relative, vs the float64 plain sum
 GATHER_RTOL = 1e-6          # product and sum; min must be exact
 BACKEND_RTOL = 1e-4         # cwnd after CHECK_EPOCHS on two backends
+# UnoRC: smollm-135m's full gradient, RunConfig() defaults (8 chunks,
+# RS(8, 2), int8 in blocks of 256)
+UNO_ARCH = "smollm-135m"
+UNO_PODS = (2, 4)
+UNO_SYNCS = 10              # timed syncs per pod count, after a warm-up
+UNO_P4_RTOL = 0.05          # the reference's own bar for the p = 4 ring
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
 RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
@@ -110,8 +134,10 @@ def time_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: int) -> float:
-    return n_bytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(n_bytes: int, n_ops: int = 0) -> float:
+    """The larger of bytes over the HBM rate and operations over the
+    float32 (non-tensor-core) rate, in ms."""
+    return max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
 
 
 # ------------------------------------------------------------- phase 3
@@ -132,11 +158,12 @@ def drive(path: str, fn, plain: bool = False):
     """fn() with every launch count zeroed just before it and read just
     after it into PATHS[path]; a plain path must launch no kernel."""
     import torch
-    from repro_torch.kernels import fleet_cuda
+    from repro_torch.kernels import fleet_cuda, unorc_cuda
     fleet_cuda.reset_launches()
+    unorc_cuda.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    PATHS[path] = dict(fleet_cuda.LAUNCHES)
+    PATHS[path] = {**fleet_cuda.LAUNCHES, **unorc_cuda.LAUNCHES}
     check(not plain or not PATHS[path], f"{path} launched {PATHS[path]}")
     return out
 
@@ -338,22 +365,19 @@ def _backend_agreement(fs, state, backends, epochs):
     return errs
 
 
-def profile_step(fs, state, n: int = 20):
-    """Device kernels per epoch, device busy time and idle share of the
-    eager step, from a torch.profiler trace of n epochs."""
+def device_profile(fn, n: int) -> dict:
+    """Device kernels per call, device busy time and idle share of `fn`,
+    from a torch.profiler trace of n calls (after one warm-up call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.fleetsim import make_step
-    step = make_step(fs.net, fs.params, "uno", fs.is_inter, lb=fs.lb)
-    for _ in range(3):
-        state, _ = step(state)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(state)
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name: dict = {}
@@ -365,12 +389,26 @@ def profile_step(fs, state, n: int = 20):
     n_kernels = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return dict(
-        epochs=n, wall_ms_per_epoch=wall / n * 1e3,
-        device_kernels_per_epoch=n_kernels / n,
-        device_busy_ms_per_epoch=(busy_us / n / 1e3) if n_kernels else None,
+        calls=n, wall_ms_per_call=wall / n * 1e3,
+        device_kernels_per_call=n_kernels / n,
+        device_busy_ms_per_call=(busy_us / n / 1e3) if n_kernels else None,
         device_idle_share=(1.0 - busy_us / 1e6 / wall) if n_kernels
         else None,
-        top_kernels_us_per_epoch={k[:60]: t / n for k, (t, _) in top})
+        top_kernels_us_per_call={k[:60]: t / n for k, (t, _) in top})
+
+
+def profile_step(fs, state, n: int = 20):
+    """`device_profile` of the eager fat-tree step, per epoch."""
+    from repro_torch.fleetsim import make_step
+    step = make_step(fs.net, fs.params, "uno", fs.is_inter, lb=fs.lb)
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0])
+
+    for _ in range(2):
+        one()
+    return device_profile(one, n)
 
 
 def main_path(fs, dev, spec_s, compile_s, card):
@@ -458,6 +496,227 @@ def dumbbells(dev, card, fs_mp):
     emit("dumbbells", **card, runs=out)
 
 
+# ------------------------------------------------------------- phase 6/7
+
+def uno_path(p: int, backend: str = "cuda") -> str:
+    return f"uno_sync:{UNO_ARCH}:p{p}:{backend}"
+
+
+def uno_chunk_len(n_params: int, run) -> int:
+    """One chunk of the sync's flat vector: padded to uno_chunks x
+    uno_ec_data x 256, as `_pod_ring_psum` pads it."""
+    unit = run.uno_chunks * run.uno_ec_data * 256
+    return -(-n_params // unit) * unit // run.uno_chunks
+
+
+def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
+    """Every UnoRC kernel use against its plain version on the card at the
+    shapes of one chunk of the p = 2 sync, and the 55 erasure patterns;
+    returns the per-kernel records (`path`/`counter` as in
+    `kernel_phase`) and the pattern count."""
+    import itertools
+    import torch
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import gf, ops, ref
+    from repro_torch.kernels import unorc_cuda as K
+    from repro_torch.models import params as P
+
+    run = RunConfig()
+    nx, ny = run.uno_ec_data, run.uno_ec_parity
+    c = uno_chunk_len(P.param_count(P.param_defs(cfg)), run)
+    g = torch.Generator(device=dev).manual_seed(4321)
+    x = torch.randn(n_pods, c, device=dev, generator=g) * 1e-3
+    x[:, 5 * 256:6 * 256] = 0.0          # zero blocks: scale 1, q 0
+    x[1, :256] = 0.0
+    records = []
+
+    def record(counter, path, replaces, kernel, plain, n_bytes, n_ops=0):
+        o1, o2 = kernel(), kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        o1, o2, want = ((o,) if torch.is_tensor(o) else o
+                        for o in (o1, o2, want))
+        name = counter
+        check(all(torch.equal(a, b) for a, b in zip(o1, want)),
+              f"{name}: kernel differs from its plain version")
+        check(all(torch.equal(a, b) for a, b in zip(o1, o2)),
+              f"{name}: runs differ")
+        bound = bound_ms(n_bytes, n_ops)
+        records.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/unorc_kernels.cu",
+            replaces=replaces, launches=0, path=path, counter=counter,
+            max_abs_err=max(float((a.double() - b.double()).abs().max())
+                            for a, b in zip(o1, want)),
+            bitwise_equal=True, bitwise_repeat=True,
+            ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=bound,
+            bound_by="bytes" if bound == bound_ms(n_bytes) else
+            "operations", library_ms=None, bytes=n_bytes, ops=n_ops,
+            shape=[int(v) for v in o1[0].shape]))
+        return o1 if len(o1) > 1 else o1[0]
+
+    nb = c // 256
+    q, s = record("quant_int8", uno_path(2),
+                  "src/repro/kernels/quant_pallas.py:36",
+                  lambda: K.quant_int8(x), lambda: ref.quant_int8_ref(x),
+                  n_pods * (4 * c + c + 4 * nb), n_pods * c)
+    check(bool((s[:, 5] == 1.0).all()) and float(s[1, 0]) == 1.0,
+          "quant_int8: zero blocks must have scale 1")
+    rows = q.view(torch.uint8).reshape(n_pods, nx, -1)
+    width = rows.shape[-1]
+    enc = gf.rs_generator_rows(nx, ny)
+    parity = record("gf_matmul/encode", uno_path(2),
+                    "src/repro/kernels/rs_pallas.py:56",
+                    lambda: K.gf_matmul(rows, enc, use="encode"),
+                    lambda: ref.gf_matmul_ref(enc, rows),
+                    n_pods * (nx + ny) * width)
+    surv = torch.cat([rows[:, ny:], parity], dim=1)
+    dec = gf.rs_decode_matrix(nx, ny, tuple(range(ny)), tuple(range(ny)))
+    rebuilt = record("gf_matmul/decode", uno_path(2),
+                     "src/repro/kernels/rs_pallas.py:56",
+                     lambda: K.gf_matmul(surv, dec, use="decode"),
+                     lambda: ref.gf_matmul_ref(dec, surv),
+                     n_pods * (nx + ny) * width)
+    check(torch.equal(rebuilt, rows[:, :ny]), "decode: rows {0, 1} lost")
+    record("dequant_int8", uno_path(4), "src/repro/kernels/quant_pallas.py:59",
+           lambda: K.dequant_int8(q, s), lambda: ref.dequant_int8_ref(q, s),
+           n_pods * (c + 4 * nb + 4 * c), n_pods * c)
+    record("dequant_int8/acc", uno_path(2),
+           "src/repro/kernels/quant_pallas.py:59",
+           lambda: K.dequant_int8(q, s, x),
+           lambda: ref.dequant_int8_ref(q, s, acc=x),
+           n_pods * (c + 4 * nb + 8 * c), 2 * n_pods * c)
+    # every pattern of one or two lost rows among the nx + ny, one width
+    data = rows[0].contiguous()
+    n_patterns = 0
+    for m in range(1, ny + 1):
+        for lost in itertools.combinations(range(nx + ny), m):
+            missing = tuple(i for i in lost if i < nx)
+            avail = tuple(j for j in range(ny) if nx + j not in lost)
+            _, rec = ops.rs_block_roundtrip(data, ny, missing, avail)
+            check(torch.equal(rec, data[list(missing)]),
+                  f"erasure pattern {lost} not recovered")
+            n_patterns += 1
+    torch.cuda.synchronize()
+    return records, n_patterns
+
+
+def uno_stacked_grads(cfg, n_pods: int, dev, seed: int):
+    """Pod-stacked gradients of every parameter of `cfg`: N(0, 1) x 1e-3
+    from a seeded generator on the card, cast to the parameter dtype."""
+    import torch
+    from repro_torch.models import params as P
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves, treedef = P.flatten(P.param_defs(cfg))
+    return P.unflatten(treedef, [
+        (torch.randn((n_pods, *d.shape), device=dev, generator=g) * 1e-3
+         ).to(d.dtype) for d in leaves])
+
+
+def unorc_sync_phase(dev, card, cfg, n_syncs: int = UNO_SYNCS):
+    """The UnoRC gradient sync at each pod count of UNO_PODS: the kernel
+    path `uno_sync:<arch>:p<p>:cuda` and the plain one on the card,
+    checked and timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import uno_collectives as U
+    from repro_torch.kernels import ref
+    from repro_torch.models import params as P
+
+    run = RunConfig()
+    defs = P.flatten(P.param_defs(cfg))[0]
+    n_params = P.param_count(P.param_defs(cfg))
+    out_runs = []
+    for p in UNO_PODS:
+        stacked = uno_stacked_grads(cfg, p, dev, seed=100 + p)
+        sync = U.make_uno_grad_sync(cfg, run, p, device=dev)
+        plain = U.make_uno_grad_sync(cfg, run, p, device=dev,
+                                     backend="plain")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = drive(uno_path(p), lambda: sync(stacked))
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        out_plain = drive(uno_path(p, "plain"), lambda: plain(stacked),
+                          plain=True)
+        sends = run.uno_chunks * (1 if p == 2 else 2 * (p - 1))
+        want = {"quant_int8": sends, "gf_matmul/encode": sends,
+                "gf_matmul/decode": sends}
+        if p == 2:
+            want["dequant_int8/acc"] = sends
+        else:
+            want["dequant_int8/acc"] = want["dequant_int8"] = sends // 2
+        check(PATHS[uno_path(p)] == want,
+              f"{uno_path(p)} launched {PATHS[uno_path(p)]}, want {want}")
+        leaves = P.flatten(out)[0]
+        for o, o_plain, d in zip(leaves, P.flatten(out_plain)[0], defs):
+            check(o.dtype == d.dtype and tuple(o.shape) == d.shape,
+                  f"p={p}: leaf {tuple(o.shape)} {o.dtype} vs {d}")
+            check(bool(torch.isfinite(o).all()), f"p={p}: non-finite leaf")
+            check(torch.equal(o, o_plain), f"p={p}: kernels vs plain differ")
+        again = P.flatten(sync(stacked))[0]
+        check(all(torch.equal(a, b) for a, b in zip(leaves, again)),
+              f"p={p}: two syncs differ")
+        # against the float64 pod mean
+        flat, _ = U._flatten(stacked, p)
+        got = torch.cat([o.reshape(-1).double() for o in leaves])
+        mean = flat.double().mean(dim=0)
+        err = (got - mean).abs()
+        acc = dict(max_abs_err=float(err.max()),
+                   max_rel_err=float(err.max() / mean.abs().max()))
+        if p == 2:
+            # half a quant step of the partner's block, halved by the
+            # mean, plus the bf16 rounding of the output
+            _, sc = ref.quant_int8_ref(F.pad(flat[1], (0, (-n_params) % 256)))
+            step = sc.repeat_interleave(256)[:n_params].double()
+            bound = 0.25 * step * (1 + 2.0 ** -20) + 2.0 ** -8 * got.abs() \
+                + 2.0 ** -20 * mean.abs()
+            acc["max_err_over_bound"] = float((err / bound).max())
+            check(acc["max_err_over_bound"] <= 1.0,
+                  f"p=2: outside the int8 bound {acc}")
+        else:
+            check(acc["max_rel_err"] <= UNO_P4_RTOL,
+                  f"p={p}: relative error {acc['max_rel_err']}")
+        del flat, got, mean, err, again
+        times = []
+        for _ in range(n_syncs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sync(stacked)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        plain_times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain(stacked)
+            torch.cuda.synchronize()
+            plain_times.append(time.perf_counter() - t0)
+        ms = statistics.median(times) * 1e3
+        payload = p * n_params * 4
+        out_runs.append(dict(
+            arch=UNO_ARCH, n_pods=p, n_params=n_params,
+            chunks=run.uno_chunks, ec=[run.uno_ec_data, run.uno_ec_parity],
+            chunk_len=uno_chunk_len(n_params, run),
+            protected_sends_per_chunk=sends // run.uno_chunks,
+            ms_per_sync=ms, ms_per_sync_all=[t * 1e3 for t in times],
+            plain_ms_per_sync=statistics.median(plain_times) * 1e3,
+            first_sync_s=first_s, payload_bytes=payload,
+            payload_gb_per_s=payload / (ms * 1e-3) / 1e9,
+            peak_mem_bytes=peak, launches=PATHS[uno_path(p)],
+            profile=device_profile(lambda: sync(stacked), 3), **acc))
+        del stacked, out, out_plain, leaves
+        torch.cuda.empty_cache()
+    raw = n_params * 4                  # benchmarks/uno_collectives_bench.py
+    q = n_params
+    ec = q * (1 + run.uno_ec_parity / run.uno_ec_data) + 4 * n_params // 256
+    emit("unorc_sync", **card, runs=out_runs,
+         dci_bytes_raw=raw, dci_bytes_uno=int(ec),
+         dci_compression_x=raw / ec)
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -475,6 +734,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
     from repro_torch.scenarios import fat_tree_spec, to_fleetsim
 
@@ -487,11 +747,13 @@ def main() -> int:
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    build.load()
-    emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=build.BUILD_INFO.get("seconds"),
-         library=str(build.library_path().relative_to(ROOT)),
-         ptxas=build.BUILD_INFO.get("ptxas", ""))
+    build.build_all()
+    emit("build", seconds=time.perf_counter() - t0, libraries={
+        n: dict(source=str(src.relative_to(ROOT)),
+                library=str(build.library_path(n).relative_to(ROOT)),
+                nvcc_seconds=build.BUILD_INFO[n]["seconds"],
+                ptxas=build.BUILD_INFO[n]["ptxas"])
+        for n, src in build.SOURCES.items()})
 
     t0 = time.perf_counter()
     spec = fat_tree_spec(**FAT_TREE)
@@ -511,6 +773,11 @@ def main() -> int:
     card = dict(device=kind, nvidia_smi=smi)
     main_path(fs, dev, spec_s, compile_s, card)
     dumbbells(dev, card, fs_mp)
+    uno_cfg = get_config(UNO_ARCH)
+    uno_records, n_patterns = unorc_kernel_phase(dev, uno_cfg)
+    emit("unorc_kernels", records=uno_records, erasure_patterns=n_patterns)
+    unorc_sync_phase(dev, card, uno_cfg)
+    records += uno_records
     for rec in records:
         rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "

@@ -1,0 +1,22 @@
+"""smollm-135m [dense] — llama-arch small [hf:HuggingFaceTB/SmolLM-135M; hf].
+
+30L d_model=576 9H (GQA kv=3) d_ff=1536 vocab=49152.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    sharding_profile="dp",
+    remat_policy="none",
+    name="smollm-135m",
+    family="dense",
+    n_layers=30,
+    d_model=576,
+    n_heads=9,
+    n_kv_heads=3,
+    head_dim=64,
+    d_ff=1536,
+    vocab=49152,
+    act="swiglu",
+    tie_embeddings=True,
+    optimizer="adamw",
+)

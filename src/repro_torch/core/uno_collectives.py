@@ -1,0 +1,215 @@
+"""UnoRC applied to cross-pod training: the chunked, int8-quantized,
+RS(8, 2)-protected gradient exchange over the `pod` axis (the paper's
+Fig 13 C workload: data-parallel training across two DCs with an
+Allreduce per iteration).
+
+The reference (``repro.core.uno_collectives``) runs one program per pod
+under `shard_map` and moves each protected chunk with `ppermute`.  Here
+every pod's copy lives on one card as dim 0 of a (p, N) tensor, and the
+transfer `ppermute(x, "pod", [(i, (i + 1) % p)])` is the same permutation
+along dim 0: pod j receives pod j - 1's value (`torch.roll`).  The ring's
+per-pod `take`/`put` at index (pod - s) become gathers and scatters with
+per-pod index tensors.  Every hop is protected:
+
+  * `_protect`: int8 block quantization (K4), the bytes framed into
+    `uno_ec_data` rows, `uno_ec_parity` RS parity rows (K3 encode);
+  * `_unprotect`: the receiver RS-decodes rows {0 .. y-1} from the
+    survivors (K3 decode) and dequantizes (K5).
+
+`_quant`/`_dequant`/`_rs_encode`/`_rs_decode` go through the kernel
+wrappers, which launch the Hopper kernels for CUDA tensors and run the
+plain versions for CPU ones; ``backend="plain"`` runs the plain versions
+on any device (the card's reference run).
+
+The f32 arithmetic follows the reference one for one, in the same order,
+in its jitted form.  The pairwise mean is (c + recv) * 0.5 and the ring
+adds take + recv, where XLA contracts the receiver's dequantize (q *
+scale) and the add into one fused multiply-add, fma(q, scale, c): so does
+the port (K5 with an addend).  The ring's final `/ n_pods` is, under jit,
+a multiply by f32(1 / p).
+
+On one card the reference's two implementations (`uno_impl` "leaf_local"
+and "flat") compute the same function: with no in-pod axes their padding
+units are equal.  The port has the one code path.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops, ref
+from repro_torch.models import params as P
+
+F32 = torch.float32
+BACKENDS = ("auto", "plain")
+
+
+def _check_backend(backend: str):
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+
+
+def _quant(v, backend):
+    if backend == "auto":
+        return ops.quant_int8(v)
+    vp = F.pad(v, (0, (-v.shape[-1]) % ops.QUANT_BLOCK))
+    q, s = ref.quant_int8_ref(vp, ops.QUANT_BLOCK)
+    return q, s, v.shape[-1]
+
+
+def _dequant(q, s, n0, backend, acc=None):
+    if backend == "auto":
+        return ops.dequant_int8(q, s, n0, acc=acc)
+    if acc is not None:
+        acc = ops.pad_to(acc, q.shape[-1])
+    return ref.dequant_int8_ref(q, s, ops.QUANT_BLOCK, acc=acc)[..., :n0]
+
+
+def _rs_encode(rows, r, backend):
+    if backend == "auto":
+        return ops.rs_encode(rows, r)
+    return ref.rs_encode_ref(rows, r)
+
+
+def _rs_decode(survivors, k, r, missing, parity_avail, backend):
+    if backend == "auto":
+        return ops.rs_decode(survivors, k, r, missing, parity_avail)
+    return ref.rs_decode_ref(survivors, k, r, missing, parity_avail)
+
+
+# --------------------------------------------------------------- wire format
+
+def _protect(chunk, run: RunConfig, backend: str = "auto"):
+    """chunk f32 (..., C) -> (q_rows uint8 (..., x, Cpad / x), scales f32
+    (..., Cpad / 256), parity uint8 (..., y, Cpad / x), n0 = C)."""
+    x, y = run.uno_ec_data, run.uno_ec_parity
+    q, scales, n0 = _quant(chunk, backend)
+    rows = q.view(torch.uint8).reshape(*q.shape[:-1], x, -1)
+    return rows, scales, _rs_encode(rows, y, backend), n0
+
+
+def _unprotect(rows, scales, parity, n0, run: RunConfig, dtype=F32,
+               backend: str = "auto", acc=None):
+    """Receiver: RS-decode rows {0 .. y-1} from the survivors and use the
+    reconstruction (equal to the wire copy when nothing was lost).  With
+    `acc` ((..., n0) f32) it returns acc + the received chunk as one fused
+    multiply-add, fma(q, scale, acc): XLA contracts the reference's
+    dequantize-then-add into exactly that."""
+    x, y = run.uno_ec_data, run.uno_ec_parity
+    missing = tuple(range(y))                      # designated decode rows
+    survivors = torch.cat([rows[..., y:, :], parity], dim=-2)
+    rebuilt = _rs_decode(survivors, x, y, missing, tuple(range(y)), backend)
+    full = torch.cat([rebuilt, rows[..., y:, :]], dim=-2)
+    q = full.reshape(*full.shape[:-2], -1).view(torch.int8)
+    return _dequant(q, scales, n0, backend, acc).to(dtype)
+
+
+# ------------------------------------------------------------- pod exchange
+
+def _pod_ring_psum(v, run: RunConfig, n_pods: int, backend: str = "auto"):
+    """Every pod's copy of the mean over pods of a pod-stacked (p, N) f32
+    tensor, via `uno_chunks` independent protected chunk streams (ring
+    reduce-scatter + all-gather for p > 2, one pairwise exchange for
+    p = 2).  Returns (p, N): row j is what pod j ends with; the rows
+    differ by the quantization of the hops each pod received."""
+    _check_backend(backend)
+    p, n = v.shape
+    if p != n_pods:
+        raise ValueError(f"v has {p} pod rows, n_pods is {n_pods}")
+    n_chunks = max(1, run.uno_chunks)
+    vp = F.pad(v, (0, (-n) % (n_chunks * run.uno_ec_data * ops.QUANT_BLOCK)))
+    chunks = vp.chunk(n_chunks, dim=1)
+
+    def send(chunk, acc=None):
+        """Protect, move pod j-1's wire bytes to pod j, unprotect (adding
+        the received chunk to `acc` when it is given)."""
+        rows, scales, parity, n0 = _protect(chunk, run, backend)
+        rows, scales, parity = (torch.roll(t, 1, dims=0)
+                                for t in (rows, scales, parity))
+        return _unprotect(rows, scales, parity, n0, run, backend=backend,
+                          acc=acc)
+
+    if n_pods == 2:
+        out = [send(c, acc=c) * 0.5 for c in chunks]     # (c + recv) * 0.5
+        return torch.cat(out, dim=1)[:, :n]
+
+    pod = torch.arange(n_pods, device=v.device)
+    inv_p = float(np.float32(1.0 / n_pods))
+    out_chunks = []
+    for c in chunks:
+        cp = F.pad(c, (0, (-c.shape[1]) % n_pods))
+        parts = cp.reshape(n_pods, n_pods, -1)     # (pod, part, L)
+        # RS phase: step s moves the running sum of ring index (pod - s)
+        for s in range(n_pods - 1):
+            tgt = (pod - s - 1) % n_pods               # take + recv:
+            parts[pod, tgt] = send(parts[pod, (pod - s) % n_pods],
+                                   acc=parts[pod, tgt])  # from pod - 1
+        # pod j now owns the full sum of part (j + 1) % p
+        # AG phase: circulate the owned parts around the ring
+        for s in range(n_pods - 1):
+            recv = send(parts[pod, (pod + 1 - s) % n_pods])
+            parts[pod, (pod - s) % n_pods] = recv
+        out_chunks.append(parts.reshape(n_pods, -1)[:, :c.shape[1]] * inv_p)
+    return torch.cat(out_chunks, dim=1)[:, :n]
+
+
+# ----------------------------------------------------------------- flattening
+
+def _flatten(stacked, n_pods: int):
+    """Pod-stacked tree -> ((p, N) f32 in JAX leaf order, meta)."""
+    leaves, treedef = P.flatten(stacked)
+    flat = torch.cat([l.reshape(n_pods, -1).to(F32) for l in leaves], dim=1)
+    return flat, (treedef, [l.shape[1:] for l in leaves],
+                  [l.dtype for l in leaves])
+
+
+def _unflatten(flat, meta):
+    """(N,) f32 -> the tree, each leaf cast back to its dtype (bf16 by
+    round-to-nearest-even, as XLA casts)."""
+    treedef, shapes, dtypes = meta
+    out, off = [], 0
+    for shp, dt in zip(shapes, dtypes):
+        n = int(np.prod(shp, dtype=np.int64))
+        out.append(flat[off:off + n].reshape(shp).to(dt))
+        off += n
+    return P.unflatten(treedef, out)
+
+
+# ------------------------------------------------------------------ public
+
+def make_uno_grad_sync(cfg: ModelConfig, run: RunConfig, n_pods: int,
+                       device: DeviceLike = None, backend: str = "auto"
+                       ) -> Callable:
+    """Returns uno_sync(stacked): per-pod gradient copies (a nested dict of
+    tensors on `device`, each leaf with a leading pod axis of n_pods) ->
+    the pod-mean gradients without that axis, leaf dtypes kept.
+
+    `cfg` names the model whose gradients are synced (the reference uses
+    it for their partition specs; one card has none).  The result is pod
+    0's copy, the one the reference's replicated output reads.  `device`:
+    None means cuda (raises with no card); "cpu" runs the plain versions.
+    ``backend="plain"`` runs the plain versions on the card too.
+    """
+    _check_backend(backend)
+    dev = resolve_device(device)
+
+    def uno_sync(stacked):
+        leaves, treedef = P.flatten(stacked)
+        for leaf in leaves:
+            if leaf.device.type != dev.type:
+                raise ValueError(f"uno_sync for {dev.type}: a leaf is on "
+                                 f"{leaf.device}")
+            if leaf.shape[0] != n_pods:
+                raise ValueError(f"leaf of shape {tuple(leaf.shape)} has no "
+                                 f"leading pod axis of {n_pods}")
+        if n_pods == 1:
+            return P.unflatten(treedef, [l[0] for l in leaves])
+        flat, meta = _flatten(stacked, n_pods)
+        return _unflatten(_pod_ring_psum(flat, run, n_pods, backend)[0], meta)
+
+    return uno_sync

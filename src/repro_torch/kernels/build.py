@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels.
 
-`nvcc` compiles ``csrc/fleet_kernels.cu`` for Hopper (sm_90a) into a shared
-library with a plain C interface, which is loaded with ctypes.  The library
-lands in ``src/repro_torch/_build/`` (listed in .gitignore), named by a hash
-of the source and the flags, so a changed source rebuilds and an unchanged
-one is built once per checkout.  Nothing is built when this module is
-imported; `load()` builds at first use and raises if it cannot.
+Each source under ``csrc/`` (`SOURCES`) is compiled by `nvcc` for Hopper
+(sm_90a) into its own shared library with a plain C interface, loaded with
+ctypes.  The libraries land in ``src/repro_torch/_build/`` (listed in
+.gitignore), each named by a hash of its source and the flags, so a
+changed source rebuilds and an unchanged one is built once per checkout.
+`build_all()` starts one nvcc per missing library, all at once, and waits
+for them.  Nothing is built when this module is imported; `load(name)`
+builds at first use and raises if it cannot.
 """
 from __future__ import annotations
 
@@ -19,13 +21,24 @@ import tempfile
 import time
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SOURCE = _HERE / "csrc" / "fleet_kernels.cu"
+SOURCES = {"fleet": _HERE / "csrc" / "fleet_kernels.cu",
+           "unorc": _HERE / "csrc" / "unorc_kernels.cu"}
 BUILD_DIR = _HERE.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIB = None
-BUILD_INFO: dict = {}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# name -> {C entry point: argtypes}; every entry point returns an int error
+_SIGNATURES = {
+    "fleet": {"uno_link_scatter": [_P, _P, _P, _P, _I, _P],
+              "uno_link_gathers": [_P, _P, _P, _P, _P, _I, _I, _P]},
+    "unorc": {"uno_gf_matmul": [_P, _P, _P, _LL, _I, _I, _LL, _I, _P],
+              "uno_quant_int8": [_P, _P, _P, _LL, _LL, _LL, _P],
+              "uno_dequant_int8": [_P, _P, _P, _P, _LL, _LL, _LL, _P]},
+}
+
+_LIBS: dict = {}
+BUILD_INFO: dict = {}       # name -> {"seconds", "cached", "ptxas"}
 
 
 def nvcc_path() -> str:
@@ -40,49 +53,65 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(name: str) -> pathlib.Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"fleet_kernels-{digest}.so"
+    return BUILD_DIR / f"{SOURCES[name].stem}-{digest}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the kernels unless this source's library already exists.
-    Records the build seconds and nvcc's resource report in BUILD_INFO."""
-    out = library_path()
-    if out.is_file():
-        BUILD_INFO.setdefault("seconds", 0.0)
-        BUILD_INFO.setdefault("cached", True)
-        return out
+def build_all(names=None) -> dict:
+    """Compile every named source (default: all) whose library is missing,
+    one nvcc each, started together.  Records each build's seconds and
+    nvcc's resource report in BUILD_INFO[name]; raises if any build
+    fails.  Returns {name: library path}."""
+    names = list(SOURCES) if names is None else list(names)
+    paths = {n: library_path(n) for n in names}
+    todo = [n for n in names if not paths[n].is_file()]
+    for n in names:
+        if n not in todo:
+            BUILD_INFO.setdefault(n, dict(seconds=0.0, cached=True, ptxas=""))
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    t0 = time.perf_counter()
+    nvcc = nvcc_path()
+    jobs = {}
     try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
+        for n in todo:
+            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[n])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[n] = (proc, tmp, time.perf_counter())
+        failed = []
+        for n, (proc, tmp, t0) in jobs.items():
+            report, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc {SOURCES[n].name} failed "
+                              f"({proc.returncode}):\n{report}")
+                continue
+            os.replace(tmp, paths[n])
+            BUILD_INFO[n] = dict(seconds=time.perf_counter() - t0,
+                                 cached=False, ptxas=report.strip())
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False,
-                      ptxas=(proc.stdout + proc.stderr).strip())
-    return out
+        for proc, tmp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return paths
 
 
-def load():
-    """The loaded ctypes library, building it first if needed."""
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.uno_link_scatter.argtypes = [p, p, p, p, i, p]
-        lib.uno_link_scatter.restype = i
-        lib.uno_link_gathers.argtypes = [p, p, p, p, p, i, i, p]
-        lib.uno_link_gathers.restype = i
-        _LIB = lib
-    return _LIB
+def load(name: str):
+    """The loaded ctypes library of source `name`, building it first if
+    needed."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build_all([name])[name]))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+        _LIBS[name] = lib
+    return _LIBS[name]

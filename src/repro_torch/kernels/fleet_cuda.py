@@ -79,7 +79,7 @@ def segment_sum(vals_ext: torch.Tensor, gather: torch.Tensor,
     if not _on_cuda(vals_ext, gather, ptr):
         return ref.csr_segment_sum_ref(vals_ext, gather, ptr)
     from repro_torch.kernels import build
-    lib = build.load()
+    lib = build.load("fleet")
     n_seg = ptr.shape[0] - 2
     out = torch.empty(n_seg + 1, dtype=torch.float32, device=vals_ext.device)
     err = lib.uno_link_scatter(vals_ext.data_ptr(), gather.data_ptr(),
@@ -160,7 +160,7 @@ def row_gathers(idx: torch.Tensor, packed: torch.Tensor, *,
     if r == 0:
         return tuple(outs)
     from repro_torch.kernels import build
-    lib = build.load()
+    lib = build.load("fleet")
     err = lib.uno_link_gathers(idx.data_ptr(), packed.data_ptr(),
                                *(o.data_ptr() for o in outs), r, h,
                                torch.cuda.current_stream().cuda_stream)

@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of the fleet flow<->link kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Two families:
+Fleet flow<->link kernels, in two families:
 
   * the oracles of ``repro.kernels.ref`` (fleet half), restated in torch:
     `fleet_offered_load_ref` (one `index_add_` into an (L+1,) buffer),
@@ -12,12 +12,21 @@ Two families:
     hops of each row of an index table, reduced hop by hop in the same
     order as the kernel so the results are bitwise comparable).
 
-The wrappers in `repro_torch.kernels.fleet_cuda` run the K1/K2 plain
-versions for tensors on the CPU; the card's kernels are held against them.
+UnoRC kernels (``repro.kernels.ref``'s GF and quant half): `gf_mul_ref`,
+`gf_matmul_ref` (log/exp table gathers, XOR-accumulated), `rs_encode_ref`,
+`rs_decode_ref`, `quant_int8_ref` and `dequant_int8_ref` (with
+`fma_f32_ref` for its fused add), each taking any leading batch dims.
+
+The wrappers in `repro_torch.kernels.fleet_cuda` and `unorc_cuda` run
+these plain versions for tensors on the CPU; the card's kernels are held
+against them.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import gf
 
 
 # ------------------------------------------------ oracles (repro.kernels.ref)
@@ -143,3 +152,96 @@ def row_gathers_ref(idx, packed):
         prod = prod * v[:, j, 1]
         tot = tot + v[:, j, 2]
     return mn, 1.0 - prod, tot
+
+
+# ----------------------------------------------- UnoRC: GF(2^8) and int8
+
+def gf_mul_ref(a, b):
+    """Elementwise GF(256) product of byte-valued integer tensors via the
+    log/exp tables (int64 result)."""
+    a, b = a.long(), b.long()
+    exp = torch.as_tensor(gf.EXP, dtype=torch.int64, device=a.device)
+    log = torch.as_tensor(gf.LOG, dtype=torch.int64, device=a.device)
+    prod = exp[log[a] + log[b]]
+    return torch.where((a == 0) | (b == 0), torch.zeros_like(prod), prod)
+
+
+def gf_matmul_ref(coeffs, x):
+    """(M, K) GF(256) coefficients (nested ints) times (..., K, B) uint8
+    data -> (..., M, B) uint8: out[m] = XOR over k of coeffs[m][k] * x[k],
+    accumulated k = 0 first."""
+    m = len(coeffs)
+    if m == 0:
+        return x[..., :0, :].clone()
+    c = torch.as_tensor(np.array(coeffs, dtype=np.int64), device=x.device)
+    prods = gf_mul_ref(c[:, :, None], x.long()[..., None, :, :])
+    out = prods[..., 0, :]
+    for k in range(1, prods.shape[-2]):
+        out = out ^ prods[..., k, :]
+    return out.to(torch.uint8)
+
+
+def rs_encode_ref(data, r: int):
+    """Systematic RS parity: data (..., k, B) uint8 -> (..., r, B) uint8."""
+    return gf_matmul_ref(gf.rs_generator_rows(data.shape[-2], r), data)
+
+
+def rs_decode_ref(survivors, k: int, r: int, missing, parity_avail):
+    """survivors (..., n_sur, B) uint8 in `gf.rs_decode_matrix` order ->
+    the missing data rows (..., m, B) uint8."""
+    coeffs = gf.rs_decode_matrix(k, r, tuple(missing), tuple(parity_avail))
+    return gf_matmul_ref(coeffs, survivors)
+
+
+# f32(1/127): under jit XLA rewrites the reference's `amax / 127.0` into a
+# multiply by this reciprocal (0x3C010204), and the reference always runs
+# jitted, so the product is the contract (a true division moves ~5 % of
+# the block scales by one ulp).
+INV127 = float(np.float32(1.0 / 127.0))
+
+
+def quant_int8_ref(x, block: int = 256):
+    """Blockwise absmax int8 quantization over the last axis (N % block ==
+    0): scale = amax * f32(1/127), or 1 for an all-zero block; q =
+    clip(round_half_even(x / scale), -127, 127) with a true division.
+    Returns (q int8 like x, scales f32 (..., N / block))."""
+    shape = x.shape
+    xb = x.to(torch.float32).reshape(*shape[:-1], shape[-1] // block, block)
+    amax = xb.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax * INV127, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xb / scale[..., None]), -127, 127)
+    return q.to(torch.int8).reshape(shape), scale
+
+
+def fma_f32_ref(a, b, c):
+    """fma(a, b, c) in float32 with one rounding (IEEE fusedMultiplyAdd),
+    for float32 b, c and float32 a holding at most 29 significant bits
+    (int8 values here), so a * b is exact in float64.  The float64 sum is
+    rounded to odd (TwoSum gives its exact error; an inexact sum with an
+    even last bit steps one ulp toward the error), and rounding that to
+    float32 is then correctly rounded (53 >= 24 + 2 bits)."""
+    prod = a.double() * b.double()
+    c64 = c.double()
+    s = prod + c64
+    bb = s - prod
+    err = (prod - (s - bb)) + (c64 - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def dequant_int8_ref(q, scale, block: int = 256, dtype=torch.float32,
+                     acc=None):
+    """q * scale[block] in float32, cast to `dtype`; with `acc` (float32,
+    q's shape) the fused fma(q, scale[block], acc), one rounding — what
+    XLA makes of the reference's dequantize-then-add."""
+    shape = q.shape
+    qb = q.to(torch.float32).reshape(*shape[:-1], shape[-1] // block, block)
+    sb = scale[..., None]
+    if acc is None:
+        out = qb * sb
+    else:
+        out = fma_f32_ref(qb, sb.expand_as(qb), acc.reshape(qb.shape))
+    return out.reshape(shape).to(dtype)

@@ -1,0 +1,166 @@
+"""Wrappers of the hand-written Hopper kernels for UnoRC
+(``csrc/unorc_kernels.cu``), replacing the Pallas TPU kernels of
+``repro.kernels.rs_pallas`` and ``repro.kernels.quant_pallas``.
+
+  * `gf_matmul` — K3: a static (M, K) GF(2^8) coefficient matrix times a
+    batch of (K, B) byte matrices.  `use` labels the launch count: the
+    RS encode rows are "encode", a solved decode matrix "decode".
+  * `quant_int8` — K4: blockwise absmax int8 over the last axis (256
+    values per block), q and one f32 scale per block.
+  * `dequant_int8` — K5: q * scale[block] in float32, or with an addend
+    the receiver's fused dequantize-and-add fma(q, scale, acc) (counted
+    as "dequant_int8/acc").
+
+Device rule: a wrapper given CPU tensors runs its kernel's plain version
+(`repro_torch.kernels.ref`); given CUDA tensors it launches the kernel or
+raises — there is no fallback.  Each launch adds one to
+``LAUNCHES["<kernel>[/<use>]"]``; nothing else touches the counts.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from collections import Counter
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.fleet_cuda import _on_cuda, _raise_on
+
+QUANT_BLOCK = 256
+MAX_M, MAX_K = 4, 16            # the kernel's coefficient capacity
+
+LAUNCHES: Counter = Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+# ------------------------------------------------------------------ K3
+
+def gf_matmul(x: torch.Tensor, coeffs, *, use: str = "encode"
+              ) -> torch.Tensor:
+    """(M, K) GF(256) coefficients (nested Python ints, M <= 4, K <= 16)
+    times x (..., K, B) uint8 -> (..., M, B) uint8."""
+    if x.dtype != torch.uint8 or x.dim() < 2:
+        raise TypeError(f"x must be (..., K, B) uint8, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    m = len(coeffs)
+    k, width = x.shape[-2], x.shape[-1]
+    if m and any(len(row) != k for row in coeffs):
+        raise ValueError(f"coeffs rows must have K={k} entries: {coeffs}")
+    if m > MAX_M or k > MAX_K:
+        raise ValueError(f"gf_matmul takes M <= {MAX_M}, K <= {MAX_K}; got "
+                         f"({m}, {k})")
+    flat = [int(c) for row in coeffs for c in row]
+    if any(not 0 <= c <= 255 for c in flat):
+        raise ValueError(f"coefficients must be bytes: {coeffs}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if not _on_cuda(x):
+        return ref.gf_matmul_ref(coeffs, x)
+    out = torch.empty(*x.shape[:-2], m, width, dtype=torch.uint8,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    from repro_torch.kernels import build
+    lib = build.load("unorc")
+    cbuf = (ctypes.c_ubyte * len(flat))(*flat)
+    vec = int(width % 16 == 0 and _aligned(x, out))
+    err = lib.uno_gf_matmul(x.data_ptr(), out.data_ptr(), cbuf,
+                            math.prod(x.shape[:-2]), m, k, width, vec,
+                            _stream())
+    _raise_on(err, "uno_gf_matmul")
+    LAUNCHES["gf_matmul/" + use] += 1
+    return out
+
+
+# ------------------------------------------------------------------ K4
+
+def quant_int8(x: torch.Tensor):
+    """x (..., N) float32, N % 256 == 0 -> (q int8 (..., N), scales f32
+    (..., N / 256)).  Leading rows may be strided (a column slice of a
+    wider tensor); the last axis must be dense."""
+    if x.dtype != torch.float32 or x.dim() < 1:
+        raise TypeError(f"x must be (..., N) float32, got {x.dtype}")
+    n = x.shape[-1]
+    if n % QUANT_BLOCK:
+        raise ValueError(f"last axis {n} is not a multiple of {QUANT_BLOCK}")
+    if not _on_cuda(x):
+        return ref.quant_int8_ref(x, QUANT_BLOCK)
+    x2 = x.reshape(-1, n) if x.dim() != 2 else x
+    if x2.stride(-1) != 1 or (x2.shape[0] > 1 and x2.stride(0) % 4):
+        raise ValueError("x rows must be dense with a stride that is a "
+                         "multiple of 4 floats")
+    if not _aligned(x2):
+        raise ValueError("x must be 16-byte aligned")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scales = torch.empty(*x.shape[:-1], n // QUANT_BLOCK,
+                         dtype=torch.float32, device=x.device)
+    if q.numel() == 0:
+        return q, scales
+    from repro_torch.kernels import build
+    lib = build.load("unorc")
+    err = lib.uno_quant_int8(x2.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                             x2.shape[0], n, x2.stride(0), _stream())
+    _raise_on(err, "uno_quant_int8")
+    LAUNCHES["quant_int8"] += 1
+    return q, scales
+
+
+# ------------------------------------------------------------------ K5
+
+def dequant_int8(q: torch.Tensor, scales: torch.Tensor,
+                 acc: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (..., N) int8, scales (..., N / 256) f32 -> (..., N) float32
+    q * scale; with `acc` (float32, q's shape; leading rows may be
+    strided) the fused fma(q, scale, acc), one rounding."""
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"expected int8 q and float32 scales, got {q.dtype} "
+                        f"and {scales.dtype}")
+    n = q.shape[-1]
+    if n % QUANT_BLOCK or tuple(scales.shape) != (*q.shape[:-1],
+                                                   n // QUANT_BLOCK):
+        raise ValueError(f"q {tuple(q.shape)} and scales "
+                         f"{tuple(scales.shape)} do not match in blocks of "
+                         f"{QUANT_BLOCK}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("q and scales must be contiguous")
+    if acc is not None and (acc.dtype != torch.float32
+                            or acc.shape != q.shape):
+        raise ValueError(f"acc must be float32 of q's shape {tuple(q.shape)}")
+    operands = (q, scales) if acc is None else (q, scales, acc)
+    if not _on_cuda(*operands):
+        return ref.dequant_int8_ref(q, scales, QUANT_BLOCK, acc=acc)
+    q2 = q.reshape(-1, n)
+    acc2, ld = None, 0
+    if acc is not None:
+        acc2 = acc.reshape(-1, n) if acc.dim() != 2 else acc
+        ld = acc2.stride(0)
+        if acc2.stride(-1) != 1 or (acc2.shape[0] > 1 and ld % 4) \
+                or not _aligned(acc2):
+            raise ValueError("acc rows must be dense, 16-byte aligned, with "
+                             "a stride that is a multiple of 4 floats")
+    if not _aligned(q2):
+        raise ValueError("q must be 16-byte aligned")
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    from repro_torch.kernels import build
+    lib = build.load("unorc")
+    err = lib.uno_dequant_int8(q2.data_ptr(), scales.data_ptr(),
+                               None if acc2 is None else acc2.data_ptr(),
+                               out.data_ptr(), q2.shape[0], n, ld, _stream())
+    _raise_on(err, "uno_dequant_int8")
+    LAUNCHES["dequant_int8" if acc is None else "dequant_int8/acc"] += 1
+    return out

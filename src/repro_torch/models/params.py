@@ -1,0 +1,156 @@
+"""Parameter shapes of the dense LM family, and pytrees of tensors in JAX's
+leaf order.
+
+`param_defs(cfg)` restates the reference's ``repro.models.transformer
+.param_defs`` (and ``api.ParamDef``/``param_count``) as shapes and dtypes
+only: nothing is allocated.  The dense family is covered; the others
+raise until the LLM slice ports them.
+
+A parameter or gradient tree is a nested dict of tensors.  `flatten`
+walks it in ``jax.tree.flatten``'s order, which sorts dict keys at every
+level: the UnoRC sync concatenates the leaves into one vector and cuts
+it into int8 blocks that straddle leaf boundaries, so the leaf order
+decides the bits.  `tree_from_arrays`/`tree_to_arrays` carry a tree of
+numpy arrays (the reference's params or grads) across; bfloat16 leaves
+travel as their uint16 bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]          # logical axis per dim
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"                     # normal | zeros | ones
+    scale: Optional[float] = None            # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def attn_param_defs(cfg: ModelConfig, n_layers: int) -> dict:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    L = (n_layers,)
+    ax = (None,)
+    defs = {
+        "norm": ParamDef(L + (d,), ax + (None,), init="ones"),
+        "wq": ParamDef(L + (d, qd), ax + ("fsdp", "tensor")),
+        "wk": ParamDef(L + (d, kvd), ax + ("fsdp", "tensor")),
+        "wv": ParamDef(L + (d, kvd), ax + ("fsdp", "tensor")),
+        "wo": ParamDef(L + (qd, d), ax + ("tensor", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef(L + (qd,), ax + ("tensor",), init="zeros")
+        defs["bk"] = ParamDef(L + (kvd,), ax + ("tensor",), init="zeros")
+        defs["bv"] = ParamDef(L + (kvd,), ax + ("tensor",), init="zeros")
+    return defs
+
+
+def mlp_param_defs(cfg: ModelConfig, n_layers: int, d_ff: int) -> dict:
+    d = cfg.d_model
+    L = (n_layers,)
+    ax = (None,)
+    defs = {
+        "norm": ParamDef(L + (d,), ax + (None,), init="ones"),
+        "w_up": ParamDef(L + (d, d_ff), ax + ("fsdp", "tensor")),
+        "w_down": ParamDef(L + (d_ff, d), ax + ("tensor", "fsdp")),
+    }
+    if cfg.act == "swiglu":
+        defs["w_gate"] = ParamDef(L + (d, d_ff), ax + ("fsdp", "tensor"))
+    return defs
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    """The ParamDef tree of a dense decoder-only LM."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"param_defs: the {cfg.family!r} family is not ported yet")
+    defs = {
+        "layers": {"attn": attn_param_defs(cfg, cfg.n_layers),
+                   "mlp": mlp_param_defs(cfg, cfg.n_layers, cfg.d_ff)},
+        "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
+        "lm_head": ParamDef((cfg.d_model, cfg.vocab), ("fsdp", "vocab")),
+    }
+    if cfg.input_mode == "tokens" and not cfg.tie_embeddings:
+        defs["embed"] = ParamDef((cfg.vocab, cfg.d_model), ("vocab", "fsdp"),
+                                 scale=1.0)
+    return defs
+
+
+def param_count(defs: dict) -> int:
+    return sum(math.prod(d.shape) for d in flatten(defs)[0])
+
+
+# ------------------------------------------------------------ pytrees
+
+def flatten(tree) -> tuple[list, Any]:
+    """(leaves, treedef): the leaves in JAX's order (dict keys sorted at
+    every level); treedef is the nested key structure for `unflatten`."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        leaves.append(node)
+        return None
+
+    return leaves, walk(tree)
+
+
+def unflatten(treedef, leaves) -> dict:
+    """The inverse of `flatten`: a nested dict with `leaves` in order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        return next(it)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the tree holds")
+    return out
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16"
+
+
+def tree_from_arrays(tree, device) -> dict:
+    """A nested dict of numpy arrays -> the same dict of tensors on
+    `device`.  ml_dtypes bfloat16 arrays (as JAX hands them to numpy) keep
+    their bits: uint16 view -> torch.bfloat16 view."""
+    leaves, treedef = flatten(tree)
+    out = []
+    for a in leaves:
+        a = np.asarray(a)
+        t = torch.tensor(a.view(np.int16)).view(torch.bfloat16) \
+            if _is_bf16(a) else torch.tensor(a)
+        out.append(t.to(device))
+    return unflatten(treedef, out)
+
+
+def tree_to_arrays(tree) -> dict:
+    """A nested dict of tensors -> numpy arrays on the host; bfloat16
+    leaves come back as ml_dtypes bfloat16 arrays with the same bits."""
+    leaves, treedef = flatten(tree)
+    out = []
+    for t in leaves:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            out.append(t.view(torch.int16).numpy().view(ml_dtypes.bfloat16))
+        else:
+            out.append(t.numpy())
+    return unflatten(treedef, out)

@@ -186,6 +186,11 @@ def test_entry_points_never_fall_back_to_cpu():
         TL.compute_layout(np.zeros((2, 1, 2), np.int32), 3)
     with pytest.raises(RuntimeError, match="CUDA"):
         scenario_from_arrays({"net_cap": np.ones(2, np.float32)})
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.uno_collectives import make_uno_grad_sync
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_uno_grad_sync(get_config("smollm-135m"), RunConfig(), 2)
 
 
 def _imports(path: pathlib.Path):
