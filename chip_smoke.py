@@ -22,11 +22,24 @@ Phases, each printing one JSON line:
                `steady_state(scheme="uno")` on the `pt_cuda` kernels, then
                200 epochs from the shared final state on `pt_cuda`, on
                `cuda` (flat kernels) and on the plain `pt` path;
-  5. dumbbells — the 100k-flow dumbbell (1,562 bottlenecks) under uno,
+  5. sharded — the locality-sharded flow axis, shards stepped in
+               lock-step on the one card: the phase-4 fat tree on 2 shards
+               under the DC-major plan (link tiers + DCs, sender uplinks
+               private), 2,000 epochs with the boundary psum and 2,000
+               with the neighbor exchange on `pt_cuda` (bitwise equal),
+               200 epochs from phase 4's final state on `pt_cuda` and on
+               `cuda` held within 1e-4 of the single-device runs, a
+               profile of 20 sharded epochs; and the 3-DC ring (k=4, 60k
+               flows, 4 paths) on 3 shards with the neighbor exchange,
+               1,000 epochs.  Their kernels — K6 (the tiled scatter: flat,
+               and PathTable stage 2), K1 stage 1 and K2 at shard 0's
+               shapes — against the plain versions as in phase 3, K6 also
+               bitwise against K1 on the same CSR;
+  6. dumbbells — the 100k-flow dumbbell (1,562 bottlenecks) under uno,
                gemini and dctcp, and its multipath n_wan=4 variant with
                adaptive load balancing, each on the `cuda` kernels and on
                the plain `reference` path;
-  6. unorc_kernels — the UnoRC kernels against their plain versions on
+  7. unorc_kernels — the UnoRC kernels against their plain versions on
                the card at the shapes of one p = 2 chunk of smollm-135m's
                full gradient (2 pods x 16,816,128 f32): K3 encode and
                decode (rows {0, 1} from the survivors), K4 quant (zero
@@ -34,7 +47,7 @@ Phases, each printing one JSON line:
                bitwise, two runs bitwise equal, median CUDA-event time
                over 25 launches; and all 55 erasure patterns of at most
                two of the ten RS(8, 2) rows recovered bitwise;
-  7. unorc_sync — `make_uno_grad_sync` over smollm-135m's whole
+  8. unorc_sync — `make_uno_grad_sync` over smollm-135m's whole
                134,515,008-parameter bf16 gradient at p = 2 (pairwise)
                and p = 4 (ring), on the kernels and on the plain backend:
                outputs finite with their dtypes and shapes, kernel run
@@ -43,7 +56,7 @@ Phases, each printing one JSON line:
                within 5 % of it; ms per sync, payload GB/s, peak memory
                and the DCI byte accounting.
 
-Every path that phases 4, 5 and 7 drive runs with the launch counts zeroed
+Every path that phases 4 to 6 and 8 drive runs with the launch counts zeroed
 just before it and read just after it; each kernel record carries the
 count of the path it belongs to (`path`), and a path's kernel that was
 never launched in it fails the run.  The comparisons of phase 3 do not
@@ -86,6 +99,13 @@ UNO_PODS = (2, 4)
 UNO_SYNCS = 10              # timed syncs per pod count, after a warm-up
 UNO_P4_RTOL = 0.05          # the reference's own bar for the p = 4 ring
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# sharded flow axis: the main path's fat tree on 2 shards (DC-major plan),
+# and the full-mode multi-DC point of benchmarks/fleetsim_sweep.py on 3
+SHARD_WARM, SHARD_MEAS = 1_500, 500
+SHARD_AB_EPOCHS = 300      # per turn of the psum / nbr A/B timing
+MULTI_DC = dict(k=4, n_dc=3, mesh="ring", n_flows=60_000, n_paths=4,
+                seed=1)
+MDC_WARM, MDC_MEAS = 750, 250
 
 RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
@@ -168,12 +188,15 @@ def drive(path: str, fn, plain: bool = False):
     return out
 
 
-def kernel_phase(net, dev, flat_path, pt_path=None, tag=""):
+def kernel_phase(net, dev, flat_path=None, pt_path=None, tag="", halo=None):
     """Every kernel that the paths over `net`'s layout launch, against its
     plain version at that layout's shapes; returns the per-kernel records
     (`path`: the run whose launch count a record reports, `counter`: the
-    key of that count) and the whole-offered-load errors.  The PathTable
-    kernels are checked when `pt_path` is given."""
+    key of that count) and the whole-offered-load errors.  The flat
+    kernels are checked when `flat_path` is given, the PathTable kernels
+    when `pt_path` is.  With `halo` (a shard's boundary count) the flat
+    scatter and PathTable stage 2 are K6, the tiled scatter a sharded run
+    launches, also held bitwise against K1 on the same CSR."""
     import torch
     from repro_torch.fleetsim import links as L
     from repro_torch.kernels import fleet_cuda as K
@@ -195,13 +218,27 @@ def kernel_phase(net, dev, flat_path, pt_path=None, tag=""):
     packed = ref.pack_link_values(scale, clean, delay)
     records = []
 
-    def scatter_record(use, path, replaces, gather, ptr, v_ext, truth):
-        name = "link_scatter/" + use + tag
+    def scatter_record(use, path, replaces, gather, ptr, v_ext, truth,
+                       tiled=False):
+        kname = "link_scatter_tiles/" if tiled else "link_scatter/"
+        name = kname + use + tag
         k = ptr.shape[0] - 2
         live = int(ptr[k])
 
-        def kernel():
-            return K.segment_sum(v_ext, gather, ptr, use=use)
+        if tiled:
+            def kernel():
+                return torch.cat(K.segment_sum_tiles(v_ext, gather, ptr,
+                                                     halo, use=use))
+
+            def plain_fn():
+                return ref.csr_segment_sum_tiles_ref(v_ext, gather, ptr,
+                                                     halo)
+        else:
+            def kernel():
+                return K.segment_sum(v_ext, gather, ptr, use=use)
+
+            def plain_fn():
+                return ref.csr_segment_sum_ref(v_ext, gather, ptr)
 
         out1, out2 = kernel(), kernel()
         torch.cuda.synchronize()
@@ -213,6 +250,13 @@ def kernel_phase(net, dev, flat_path, pt_path=None, tag=""):
         check(rel <= SCATTER_TOL and rel_truth <= SCATTER_TOL,
               f"{name}: per-link relative error {rel} / {rel_truth}")
         check(float(out1[k]) == 0.0, f"{name}: scratch slot not 0")
+        extra = {}
+        if tiled:
+            k1 = K.segment_sum(v_ext, gather, ptr, use=use)
+            extra = dict(n_boundary=halo,
+                         bitwise_equal_k1=bool(torch.equal(out1[:k],
+                                                           k1[:k])))
+            check(extra["bitwise_equal_k1"], f"{name}: differs from K1")
         # library yardstick: one index_add_ over the gathered entries
         keys = torch.repeat_interleave(
             torch.arange(k, device=dev), (ptr[1:k + 1] - ptr[:k]).long(),
@@ -224,26 +268,28 @@ def kernel_phase(net, dev, flat_path, pt_path=None, tag=""):
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/fleet_kernels.cu",
             replaces=replaces, launches=0, path=path,
-            counter="link_scatter/" + use,
+            counter=kname + use,
             max_abs_err=float(torch.max(torch.abs(out1 - plain))),
             max_rel_err_f64=rel, bitwise_repeat=bool(torch.equal(out1,
                                                                  out2)),
-            ms=time_ms(kernel),
-            plain_ms=time_ms(lambda: ref.csr_segment_sum_ref(v_ext, gather,
-                                                             ptr)),
+            ms=time_ms(kernel), plain_ms=time_ms(plain_fn),
             bound_ms=bound_ms(n_bytes), bound_by="bytes",
             library_ms=time_ms(lambda: lib_out.index_add_(0, keys,
                                                           gathered)),
-            bytes=n_bytes, entries=live, segments=k))
+            bytes=n_bytes, entries=live, segments=k, **extra))
         check(records[-1]["bitwise_repeat"], f"{name}: runs differ")
         return out1
 
+    tiles = "src/repro/kernels/fleet_pallas.py:163"
     # the float64 scatter truth of the whole offered load
     truth_flat = ref.fleet_offered_load_ref(routes, rates.double(),
                                             split.double(), nl)
-    scatter_record("flat", flat_path,
-                   "src/repro/kernels/fleet_pallas.py:113",
-                   lay.sort_sub, lay.link_ptr, vals, truth_flat)
+    if flat_path is not None:
+        scatter_record("flat", flat_path,
+                       tiles if halo else
+                       "src/repro/kernels/fleet_pallas.py:113",
+                       lay.sort_sub, lay.link_ptr, vals, truth_flat,
+                       tiled=bool(halo))
     # the whole cuda offered load against the float64 oracle
     rel = {"cuda": _rel_err(
         K.link_scatter(lay.pad_idx, sub, nl,
@@ -255,8 +301,10 @@ def kernel_phase(net, dev, flat_path, pt_path=None, tag=""):
                              pt.seg_gather.reshape(-1), pt.seg_ptr, vals,
                              None)
         scatter_record("pt_stage2", pt_path,
+                       tiles if halo else
                        "src/repro/kernels/fleet_pallas.py:259",
-                       pt.lcsr_gather.reshape(-1), pt.llink_ptr, seg, None)
+                       pt.lcsr_gather.reshape(-1), pt.llink_ptr, seg, None,
+                       tiled=bool(halo))
         # the whole pt_cuda offered load against both float64 oracles
         got = K.path_table_scatter(pt, sub)
         truth_pt = ref.fleet_pt_offered_load_ref(
@@ -300,12 +348,13 @@ def kernel_phase(net, dev, flat_path, pt_path=None, tag=""):
             bytes=n_bytes, rows=r, hops=hh))
         check(records[-1]["bitwise_repeat"], f"{name}: runs differ")
 
-    gather_record("flat", flat_path,
-                  "src/repro/kernels/fleet_pallas.py:205",
-                  lay.pad_idx.reshape(n * p, h))
     flat_oracle = ref.fleet_link_gathers_ref(routes, scale, clean, delay)
     composed = [("cuda", K.link_gathers(lay.pad_idx, scale, clean, delay),
                  [flat_oracle])]
+    if flat_path is not None:
+        gather_record("flat", flat_path,
+                      "src/repro/kernels/fleet_pallas.py:205",
+                      lay.pad_idx.reshape(n * p, h))
     if pt_path is not None:
         gather_record("pt_segments", pt_path,
                       "src/repro/kernels/fleet_pallas.py:278", pt.seg_idx)
@@ -343,8 +392,8 @@ def _check_state(state, goodput, n, what):
 def _backend_agreement(fs, state, backends, epochs):
     """cwnd and mean goodput after `epochs` from one shared state on each
     backend, relative to the first backend; each backend's run is the
-    path `fat_tree:agree:<backend>`."""
-    import torch
+    path `fat_tree:agree:<backend>`.  Returns the errors and each
+    backend's (cwnd, mean goodput)."""
     from repro_torch.fleetsim import simulate
     out = {}
     for b in backends:
@@ -356,13 +405,17 @@ def _backend_agreement(fs, state, backends, epochs):
     cw0, gp0 = out[backends[0]]
     errs = {}
     for b, (cw, gp) in out.items():
-        errs[b] = dict(
-            cwnd=float(torch.max(torch.abs(cw - cw0) / cw0.abs())),
-            goodput=float(torch.max(torch.abs(gp - gp0))
-                          / gp0.abs().max().clamp(min=1e-30)))
+        errs[b] = _agreement_errs(cw, gp, cw0, gp0)
         check(max(errs[b].values()) <= BACKEND_RTOL,
               f"{b} vs {backends[0]}: {errs[b]}")
-    return errs
+    return errs, out
+
+
+def _agreement_errs(cw, gp, cw0, gp0):
+    import torch
+    return dict(cwnd=float(torch.max(torch.abs(cw - cw0) / cw0.abs())),
+                goodput=float(torch.max(torch.abs(gp - gp0))
+                              / gp0.abs().max().clamp(min=1e-30)))
 
 
 def device_profile(fn, n: int) -> dict:
@@ -428,8 +481,8 @@ def main_path(fs, dev, spec_s, compile_s, card):
     epochs = N_WARM + N_MEAS
     per_epoch = {k: v / epochs for k, v in PATHS[MAIN_PATH].items()}
     split_err = _check_state(state, goodput, n, "fat tree")
-    errs = _backend_agreement(fs, state, ["pt_cuda", "cuda", "pt"],
-                              CHECK_EPOCHS)
+    errs, single = _backend_agreement(fs, state, ["pt_cuda", "cuda", "pt"],
+                                      CHECK_EPOCHS)
     prof = profile_step(fs, state)
     emit("main", scenario="fat_tree_k8_permutation", **FAT_TREE, **card,
          n_links=fs.net.n_links, max_hops=int(fs.net.routes.shape[2]),
@@ -444,6 +497,7 @@ def main_path(fs, dev, spec_s, compile_s, card):
          rel_err_vs_pt_cuda=errs, launches_per_epoch=per_epoch,
          launches={k: v for k, v in PATHS.items()
                    if k.startswith("fat_tree:")}, profile=prof)
+    return state, single
 
 
 def dumbbell_fs(multipath: bool, dev):
@@ -496,7 +550,167 @@ def dumbbells(dev, card, fs_mp):
     emit("dumbbells", **card, runs=out)
 
 
-# ------------------------------------------------------------- phase 6/7
+# ------------------------------------------------------------- phase 6
+
+def shard_path(scenario: str, n_shards: int, exchange: str,
+               backend: str) -> str:
+    return f"{scenario}:shard{n_shards}:{exchange}:{backend}"
+
+
+def _sharded_run(path, sf, n, epochs, **kw):
+    """One sharded steady-state run as the path `path`: checked, timed."""
+    import torch
+    from repro_torch.fleetsim import shard as SH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, goodput = drive(path,
+                           lambda: SH.steady_state_prepared(sf, **kw))
+    wall = time.perf_counter() - t0
+    split_err = _check_state(state, goodput, n, path)
+    return state, goodput, dict(
+        epochs=epochs, run_s=wall, ms_per_epoch=wall / epochs * 1e3,
+        flow_epochs_per_s=n * epochs / wall, split_row_err=split_err,
+        launches_per_epoch={k: v / epochs for k, v in PATHS[path].items()})
+
+
+def _exchange_bytes(sf) -> dict:
+    """Per-epoch payload of the boundary exchange, per shard: the psum's
+    boundary tile, the neighbor exchange's two sends, and the full
+    (n_links + 1,) buffer an unsharded-layout psum would carry."""
+    b = sf.plan.n_boundary
+    out = dict(psum_bytes_per_shard=4 * b,
+               full_buffer_bytes_per_shard=4 * (sf.net.n_links + 1))
+    if sf.nbr is not None:
+        out["nbr_bytes_per_shard"] = 4 * 2 * int(sf.nbr.shape[2])
+    return out
+
+
+def sharded_phase(fs, dev, card, state, single):
+    """The locality-sharded flow axis on the one card, shards stepped in
+    lock-step: the main path's fat tree on 2 shards (psum and neighbor
+    exchange on `pt_cuda`, 200 epochs on the flat `cuda` kernels) and the
+    3-DC ring on 3 shards; their kernels (K6, and K1 / K2 at the shards'
+    shapes) against the plain versions.  `state` / `single`: the main
+    path's final state and the single-device runs from it."""
+    import torch
+    from repro_torch.fleetsim import links as L
+    from repro_torch.fleetsim import shard as SH
+    from repro_torch.scenarios import multi_dc_spec, to_fleetsim
+
+    n = fs.net.routes.shape[0]
+    kw = dict(is_inter=fs.is_inter, lb=fs.lb, link_tier=fs.link_tier,
+              link_dc=fs.link_dc, seed=fs.seed)
+    t0 = time.perf_counter()
+    sf = {"psum": SH.shard_scenario(fs.net, fs.params, n_shards=2,
+                                    exchange="psum", **kw)}
+    sf["nbr"] = SH.shard_scenario(fs.net, fs.params, n_shards=2,
+                                  exchange="nbr", plan=sf["psum"].plan, **kw)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    plan = sf["psum"].plan
+    backend = L._resolve_backend(sf["psum"].shard_net(0), "auto")
+    check(backend == "pt_cuda", f"sharded fat tree: auto is {backend}")
+    pt_paths = [shard_path("fat_tree", 2, ex, "pt_cuda")
+                for ex in ("psum", "nbr")]
+    flat = shard_path("fat_tree", 2, "psum", "cuda")
+    records, errs = kernel_phase(sf["psum"].shard_net(0), dev, flat,
+                                 pt_paths[0], tag="@fat_tree:shard2",
+                                 halo=plan.n_boundary)
+    records += [dict(r, path=pt_paths[1]) for r in records
+                if r["path"] == pt_paths[0]]
+
+    runs, outs = {}, {}
+    for ex, path in zip(("psum", "nbr"), pt_paths):
+        st, gp, runs[path] = _sharded_run(
+            path, sf[ex], n, SHARD_WARM + SHARD_MEAS, n_warm=SHARD_WARM,
+            n_meas=SHARD_MEAS, backend="pt_cuda")
+        outs[ex] = (st, gp)
+    (st_p, gp_p), (st_n, gp_n) = outs["psum"], outs["nbr"]
+    bitwise = torch.equal(gp_p, gp_n) and all(
+        torch.equal(v, getattr(st_n, f))
+        for f, v in st_p._asdict().items() if v is not None)
+    check(bitwise, "fat tree: psum and nbr exchanges differ")
+    del outs, st_p, st_n
+
+    # from the main path's final state: the sharded runs against the
+    # single-device runs of the same kernels
+    agree = {}
+    for b, path in (("pt_cuda", "fat_tree:shard2:agree:pt_cuda"),
+                    ("cuda", flat)):
+        st, gp, runs[path] = _sharded_run(
+            path, sf["psum"], n, CHECK_EPOCHS, n_warm=0,
+            n_meas=CHECK_EPOCHS, backend=b, state0=state)
+        agree[b] = _agreement_errs(st.cwnd, gp, *single[b])
+        check(max(agree[b].values()) <= BACKEND_RTOL,
+              f"sharded {b} vs single-device {b}: {agree[b]}")
+
+    runner = SH.ShardedStep(sf["psum"], backend="pt_cuda")
+    box = [runner.split(SH.permute_in(sf["psum"], state))]
+
+    def one():
+        box[0], _ = runner.step(box[0])
+
+    prof = device_profile(one, 20)
+    del box, runner
+    # the two exchanges timed in turns within this call (psum, nbr, nbr,
+    # psum), from the main path's final state
+    ab = []
+    for ex in ("psum", "nbr", "nbr", "psum"):
+        runner = SH.ShardedStep(sf[ex], backend="pt_cuda")
+        states = runner.split(SH.permute_in(sf[ex], state))
+        for _ in range(5):
+            states, _ = runner.step(states)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SHARD_AB_EPOCHS):
+            states, _ = runner.step(states)
+        torch.cuda.synchronize()
+        ab.append([ex, (time.perf_counter() - t0) / SHARD_AB_EPOCHS * 1e3])
+    del runner, states
+
+    t0 = time.perf_counter()
+    fs3 = to_fleetsim(multi_dc_spec(**MULTI_DC), device=dev)
+    sf3 = SH.shard_scenario(fs3.net, fs3.params, n_shards=3, exchange="nbr",
+                            is_inter=fs3.is_inter, lb=fs3.lb,
+                            link_tier=fs3.link_tier, link_dc=fs3.link_dc,
+                            seed=fs3.seed)
+    torch.cuda.synchronize()
+    mdc_s = time.perf_counter() - t0
+    b3 = L._resolve_backend(sf3.shard_net(0), "auto")
+    path3 = shard_path("multi_dc", 3, "nbr", b3)
+    recs3, errs3 = kernel_phase(
+        sf3.shard_net(0), dev, path3 if b3 == "cuda" else None,
+        path3 if b3 == "pt_cuda" else None, tag="@multi_dc:shard3",
+        halo=sf3.plan.n_boundary)
+    records += recs3
+    n3 = fs3.net.routes.shape[0]
+    _, _, runs[path3] = _sharded_run(path3, sf3, n3, MDC_WARM + MDC_MEAS,
+                                     n_warm=MDC_WARM, n_meas=MDC_MEAS)
+    main = RESULTS["main"]
+    emit("sharded", **card, single_device_ms_per_epoch=main["ms_per_epoch"],
+         single_device_flow_epochs_per_s=main["flow_epochs_per_s"],
+         fat_tree=dict(
+             **FAT_TREE, n_shards=2, plan="link_tier + link_dc, "
+             "sender_private", n_links=plan.n_links,
+             n_boundary=plan.n_boundary,
+             real_flows_per_shard=[int(v) for v in
+                                   (plan.gather < plan.n_real).sum(1)],
+             nbr_width=int(sf["nbr"].nbr.shape[2]), backend=backend,
+             shard_scenario_s=shard_s, **_exchange_bytes(sf["nbr"]),
+             psum_nbr_bitwise_equal=bitwise, rel_err_vs_single=agree,
+             exchange_ab_ms_per_epoch=ab, profile=prof, **errs),
+         multi_dc=dict(
+             **MULTI_DC, n_shards=3, n_links=sf3.net.n_links,
+             n_boundary=sf3.plan.n_boundary,
+             real_flows_per_shard=[int(v) for v in (sf3.plan.gather
+                                                    < sf3.plan.n_real).sum(1)],
+             nbr_width=int(sf3.nbr.shape[2]), auto_backend=b3,
+             build_s=mdc_s, **_exchange_bytes(sf3), **errs3),
+         runs=runs, records=records)
+    return records
+
+
+# ------------------------------------------------------------- phase 7/8
 
 def uno_path(p: int, backend: str = "cuda") -> str:
     return f"uno_sync:{UNO_ARCH}:p{p}:{backend}"
@@ -771,7 +985,9 @@ def main() -> int:
     emit("kernels", records=records, **extra, **db_extra)
 
     card = dict(device=kind, nvidia_smi=smi)
-    main_path(fs, dev, spec_s, compile_s, card)
+    state, single = main_path(fs, dev, spec_s, compile_s, card)
+    records += sharded_phase(fs, dev, card, state, single)
+    del state, single
     dumbbells(dev, card, fs_mp)
     uno_cfg = get_config(UNO_ARCH)
     uno_records, n_patterns = unorc_kernel_phase(dev, uno_cfg)

@@ -1,12 +1,19 @@
-"""Fluid-model fleet simulator (steady-state slice of the port)."""
+"""Fluid-model fleet simulator: the steady state on one device, and the
+locality-sharded flow axis (`shard`)."""
 from repro_torch.fleetsim.carry import scenario_from_arrays, state_from_arrays
-from repro_torch.fleetsim.cc import (SCHEMES, make_step, simulate,
-                                     steady_state, update_split)
+from repro_torch.fleetsim.cc import (SCHEMES, make_step, make_step_halves,
+                                     simulate, steady_state,
+                                     steady_state_core, update_split)
 from repro_torch.fleetsim.links import (LOAD_BACKENDS, FluidNet, PathTable,
                                         RouteLayout, compute_layout,
-                                        compute_path_table, link_epoch,
-                                        normalize_split, offered_load,
+                                        compute_path_table, halo_exchange,
+                                        link_epoch, normalize_split,
+                                        offered_load, scatter_partial,
                                         uniform_split, with_layout)
+from repro_torch.fleetsim.shard import (ShardedFleet, ShardedStep,
+                                        neighbor_halo, shard_scenario,
+                                        steady_state_prepared,
+                                        steady_state_sharded)
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
                                         LbParams, init_state, make_lb_params,
                                         make_params)
@@ -14,10 +21,14 @@ from repro_torch.fleetsim.sweeps import fleet_sum, jain
 
 __all__ = [
     "scenario_from_arrays", "state_from_arrays",
-    "SCHEMES", "make_step", "simulate", "steady_state", "update_split",
+    "SCHEMES", "make_step", "make_step_halves", "simulate", "steady_state",
+    "steady_state_core", "update_split",
     "LOAD_BACKENDS", "FluidNet", "PathTable", "RouteLayout",
-    "compute_layout", "compute_path_table", "link_epoch", "normalize_split",
-    "offered_load", "uniform_split", "with_layout",
+    "compute_layout", "compute_path_table", "halo_exchange", "link_epoch",
+    "normalize_split", "offered_load", "scatter_partial", "uniform_split",
+    "with_layout",
+    "ShardedFleet", "ShardedStep", "neighbor_halo", "shard_scenario",
+    "steady_state_prepared", "steady_state_sharded",
     "ChurnParams", "FleetParams", "FleetState", "LbParams", "init_state",
     "make_lb_params", "make_params",
     "fleet_sum", "jain",

@@ -5,9 +5,10 @@ of numpy arrays named as the reference's scenario bundles name them:
 ``net_<FluidNet field>``, ``lay_<RouteLayout field>``,
 ``lay_pt_<PathTable field>``, ``par_<FleetParams field>``,
 ``lb_<LbParams field>``, ``churn_<ChurnParams field>``, ``is_inter``,
-``link_tier`` and the ``__meta__`` JSON (for the seed).  An open ``.npz``
-bundle of the reference's sweep service therefore loads unchanged, as does
-a reference `FleetScenario` flattened with ``np.asarray``.
+``link_tier``, ``link_dc`` and the ``__meta__`` JSON (for the seed).  An
+open ``.npz`` bundle of the reference's sweep service therefore loads
+unchanged, as does a reference `FleetScenario` flattened with
+``np.asarray``.
 `state_from_arrays` does the same for a `FleetState`, one array per field.
 Keys of fields the port does not hold (the reference layout's
 ``lay_hop_mask``, ``lay_sort_link``, ``lay_csr_gather``) are ignored;
@@ -82,7 +83,9 @@ def scenario_from_arrays(arrays: Mapping, device=None):
         is_inter=is_inter, lb=_family(arrays, "lb_", LbParams, dev, keys),
         churn=_family(arrays, "churn_", ChurnParams, dev, keys), seed=seed,
         link_tier=(np.asarray(arrays["link_tier"])
-                   if "link_tier" in keys else None))
+                   if "link_tier" in keys else None),
+        link_dc=(np.asarray(arrays["link_dc"])
+                 if "link_dc" in keys else None))
 
 
 def state_from_arrays(arrays: Mapping, device=None,

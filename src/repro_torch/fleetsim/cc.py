@@ -7,6 +7,14 @@ feedback-lagged observations -> window accumulators -> the scheme's window
 reaction (Alg 1 for UnoCC with fast increase, Quick-Adapt and gentle MD;
 the DCTCP / Gemini baselines) -> the `lb` axis split update.
 
+The epoch is cut at the only point where flows meet across a sharded flow
+axis, the offered load: `make_step_halves` returns a send half (rates and
+this shard's partial load, `links.scatter_partial`) and a receive half
+(queue step, marks, gathers, the CC and LB updates, from the exchanged
+loads).  `make_step` composes the two with no exchange; the sharded
+runners of `repro_torch.fleetsim.shard` put the halo exchange between
+them.  `steady_state_core` is the warm-up + measurement loop both share.
+
 `lax.scan` becomes a Python loop over epochs.  The step branches only on
 Python-level configuration (scheme, `lb is None`, single-path) and makes
 no host synchronisation (no `.item()`, no tensor in Python control flow),
@@ -52,6 +60,31 @@ def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
     and reports raw goodput.  `backend` picks the link-aggregation path
     (links.LOAD_BACKENDS); it is resolved once, here.
     """
+    send, recv = make_step_halves(net, params, scheme, is_inter, lb=lb,
+                                  churn=churn, rel=rel, fault=fault,
+                                  backend=backend)
+
+    def step(state: FleetState):
+        wire, private, tile = send(state)
+        return recv(state, wire, L.assemble_load(private, tile, net.n_links))
+
+    return step
+
+
+def make_step_halves(net: L.FluidNet, params: FleetParams,
+                     scheme: str = "uno",
+                     is_inter: Optional[torch.Tensor] = None,
+                     lb: Optional[LbParams] = None, churn=None, rel=None,
+                     fault=None, *, backend: str = "auto",
+                     halo: Optional[int] = None):
+    """The epoch cut at the halo exchange, as `(send, recv)`.
+
+    `send(state, out=None) -> (wire, private, tile)`: the send rates and
+    this shard's partial offered load (`links.scatter_partial` with
+    `halo`; `out` receives the tile).  `recv(state, wire, load) ->
+    (state', goodput)`: everything after the exchange, from the (n_links,)
+    loads.  Arguments as `make_step`.
+    """
     if scheme not in SCHEMES:
         raise ValueError(f"unknown fleetsim scheme {scheme!r}")
     L.not_yet(churn=churn, rel=rel, fault=fault)
@@ -62,15 +95,18 @@ def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
     backend = L._resolve_backend(net, backend)
     fb = torch.clamp(net.dt / params.rtt, max=1.0)
 
-    def step(state: FleetState):
+    def send(state: FleetState, out: Optional[torch.Tensor] = None):
+        wire = state.active.to(torch.float32) * state.cwnd / params.rtt
+        return (wire,) + L.scatter_partial(net, wire, state.split,
+                                           backend=backend, halo=halo,
+                                           out=out)
+
+    def recv(state: FleetState, wire: torch.Tensor, load: torch.Tensor):
         p = params
-        actf = state.active.to(torch.float32)
         split = state.split
-        # ---- network: loads, queues, marks, delays ----------------------
-        rate = actf * state.cwnd / p.rtt
-        wire = rate
-        le = L.link_epoch(net, wire, split, state.q_phys, state.q_phantom,
-                          backend=backend)
+        # ---- network: queues, marks, delays -----------------------------
+        le = L.link_physics(net, load, state.q_phys, state.q_phantom,
+                            backend=backend)
         sub_frac = le.sub_frac
         if single:   # split-weighted sums collapse to one product per flow
             s1 = split[:, 0]
@@ -220,7 +256,7 @@ def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
             fault=state.fault)
         return new, goodput
 
-    return step
+    return send, recv
 
 
 def _default_state(net: L.FluidNet, params: FleetParams) -> FleetState:
@@ -258,9 +294,20 @@ def steady_state(net: L.FluidNet, params: FleetParams, *, n_warm: int,
     step = make_step(net, params, scheme, is_inter, lb=lb, churn=churn,
                      rel=rel, fault=fault, backend=backend)
     state = _default_state(net, params) if state0 is None else state0
+    return steady_state_core(step, state, n_warm=n_warm, n_meas=n_meas,
+                             acc=torch.zeros_like(params.bdp))
+
+
+def steady_state_core(step, state, *, n_warm: int, n_meas: int,
+                      acc: torch.Tensor):
+    """Run `step` (state -> (state', goodput)) for `n_warm` epochs, then
+    return (final_state, mean goodput over `n_meas` epochs), summing into
+    the zero accumulator `acc` instead of keeping a trajectory.  The
+    single-device `steady_state` and the sharded runners share it."""
+    if n_meas < 1:
+        raise ValueError(f"n_meas must be >= 1, got {n_meas}")
     for _ in range(n_warm):
         state, _ = step(state)
-    acc = torch.zeros_like(params.bdp)
     for _ in range(n_meas):
         state, goodput = step(state)
         acc = acc + goodput

@@ -24,6 +24,15 @@ four backends (`backend=`):
 else "cuda"; on the CPU to "pt" / "reference".  The kernel backends given
 CPU tensors run the kernels' plain versions (the wrappers' device rule).
 
+Sharded flow axis (`repro_torch.fleetsim.shard`): `scatter_partial` is a
+shard's partial offered load, cut with `halo=B` into a private tile and
+the boundary tile of the B trailing (boundary) links — K6 on the kernel
+backends, written straight into a row of the exchange buffer — and
+`halo_exchange` reduces the boundary tiles across shards (psum or
+neighbor exchange; shards stacked in one process, or one per rank of a
+`torch.distributed` group).  `link_epoch` = offered load (+ exchange) ->
+`link_physics`, the receive half.
+
 Queue model per epoch `dt` (forward-Euler):
 
   physical:  q' = clip(q + (arrivals - cap)    * dt, 0, qcap)
@@ -162,9 +171,12 @@ def _blocked_csr(sort_key: np.ndarray, sort_val: np.ndarray, n_keys: int,
 
 
 def _path_table_np(r: np.ndarray, n_links: int, block: int,
-                   min_compress: Optional[float]):
+                   min_compress: Optional[float],
+                   pad_segments_to: Optional[int] = None,
+                   pad_entries_to: Optional[int] = None):
     """numpy fields of the PathTable, or None when it does not clear
-    `min_compress` (see the reference's `compute_path_table`)."""
+    `min_compress` (see the reference's `compute_path_table`, whose
+    `pad_segments_to` / `pad_entries_to` padding this repeats)."""
     if r.ndim == 2:
         r = r[:, None, :]
     n, p, h = r.shape
@@ -200,16 +212,31 @@ def _path_table_np(r: np.ndarray, n_links: int, block: int,
     if min_compress is not None and \
             n_sub * h < min_compress * (e_seg.shape[0] + u * hseg):
         return None
+    # padding (so per-shard tables share one (U, E1)): empty all-scratch
+    # segment rows, and sentinel stage-1 entries past every real segment
+    n_seg = u if pad_segments_to is None else int(pad_segments_to)
+    if n_seg < u:
+        raise ValueError(f"pad_segments_to={n_seg} < {u} unique segments")
     seg_idx = np.where(seg >= 0, seg, n_links).astype(np.int32)
+    if n_seg > u:
+        seg_idx = np.concatenate(
+            [seg_idx, np.full((n_seg - u, hseg), n_links, np.int32)])
+    if pad_entries_to is not None:
+        extra = int(pad_entries_to) - e_seg.shape[0]
+        if extra < 0:
+            raise ValueError(f"pad_entries_to={pad_entries_to} < "
+                             f"{e_seg.shape[0]} live entries")
+        e_sub = np.concatenate([e_sub, np.full(extra, n_sub, np.int32)])
+        e_seg = np.concatenate([e_seg, np.full(extra, n_seg, np.int32)])
     order = np.argsort(e_seg, kind="stable")
     seg_gather, seg_ptr = _blocked_csr(
-        e_seg[order], e_sub[order], u, u, n_sub, block)
+        e_seg[order], e_sub[order], n_seg, n_seg, n_sub, block)
     # stage 2: each (segment, hop) entry carries the segment's rate
     e_lnk = seg_idx.reshape(-1)
-    e_sid = np.repeat(np.arange(u, dtype=np.int32), hseg)
+    e_sid = np.repeat(np.arange(n_seg, dtype=np.int32), hseg)
     order = np.argsort(e_lnk, kind="stable")
     lcsr_gather, llink_ptr = _blocked_csr(
-        e_lnk[order], e_sid[order], n_links, n_links, u, block)
+        e_lnk[order], e_sid[order], n_links, n_links, n_seg, block)
     return dict(pre_id=pre_id.reshape(n, p), suf_id=suf_id.reshape(n, p),
                 seg_idx=seg_idx, seg_gather=seg_gather, seg_ptr=seg_ptr,
                 lcsr_gather=lcsr_gather, llink_ptr=llink_ptr)
@@ -225,13 +252,19 @@ def _device_of(routes, device) -> torch.device:
 
 def compute_path_table(routes, n_links: int, *, block: int = CSR_BLOCK,
                        min_compress: Optional[float] = None,
+                       pad_segments_to: Optional[int] = None,
+                       pad_entries_to: Optional[int] = None,
                        device=None) -> Optional[PathTable]:
     """Build the unique-path-segment table host-side and move it to
     `device` (default: the routes' device; cuda for numpy routes).
     `min_compress=r` returns None unless the flat entry count is at least
-    r times the compressed one (the auto-attach policy)."""
+    r times the compressed one (the auto-attach policy).
+    `pad_segments_to` pads the segment axis with empty all-scratch rows and
+    `pad_entries_to` pads stage 1 with sentinel entries, so the shards of
+    one plan share one (U, E1) — the reference's padded stack."""
     dev = _device_of(routes, device)
-    arrs = _path_table_np(_np(routes), n_links, block, min_compress)
+    arrs = _path_table_np(_np(routes), n_links, block, min_compress,
+                          pad_segments_to, pad_entries_to)
     if arrs is None:
         return None
     return PathTable(**{k: torch.as_tensor(v, device=dev)
@@ -349,24 +382,19 @@ def not_yet(**kw):
             raise NotImplementedError(f"{name}= is not ported yet")
 
 
-def offered_load(net: FluidNet, rates: torch.Tensor,
-                 split: Optional[torch.Tensor] = None, *,
-                 backend: str = "auto", axis_name=None, halo=None,
-                 nbr=None) -> torch.Tensor:
-    """(n_links,) aggregate arrival rate from per-flow send rates: flow i
-    adds rates[i] * split[i, p] to every hop of its p-th path."""
-    not_yet(axis_name=axis_name, halo=halo, nbr=nbr)
-    split = _split_or_uniform(net, split)
-    backend = _resolve_backend(net, backend)
+def _full_buffer(net: FluidNet, rates, split, backend: str, out=None):
+    """(n_links + 1,) offered-load buffer, written into `out` if given.
+    Real links are the contract; the scratch slot is backend-specific."""
     sub = rates[:, None] * split
     if backend == "cuda":
         lay = net.layout
         csr = None if lay is None else (lay.sort_sub, lay.link_ptr)
-        buf = fleet_cuda.link_scatter(_pad_idx(net), sub, net.n_links,
-                                      csr=csr)
-    elif backend == "pt_cuda":
-        buf = fleet_cuda.path_table_scatter(net.layout.path_table, sub)
-    elif backend == "pt":
+        return fleet_cuda.link_scatter(_pad_idx(net), sub, net.n_links,
+                                       csr=csr, out=out)
+    if backend == "pt_cuda":
+        return fleet_cuda.path_table_scatter(net.layout.path_table, sub,
+                                             out=out)
+    if backend == "pt":
         pt = net.layout.path_table
         buf = kref.fleet_pt_offered_load_ref(pt.pre_id, pt.suf_id,
                                              pt.seg_idx, rates, split,
@@ -374,7 +402,130 @@ def offered_load(net: FluidNet, rates: torch.Tensor,
     else:
         buf = kref.fleet_offered_load_ref(_routes3(net), rates, split,
                                           net.n_links)
-    return buf[:net.n_links]
+    return buf if out is None else out.copy_(buf)
+
+
+def scatter_partial(net: FluidNet, rates: torch.Tensor,
+                    split: Optional[torch.Tensor] = None, *,
+                    backend: str = "auto", halo: Optional[int] = None,
+                    out: Optional[torch.Tensor] = None):
+    """This shard's partial offered load as `(private, tile)`.
+
+    `tile` is the part a halo exchange reduces across shards, `private`
+    the part only this shard's flows load.  Under a locality shard plan
+    the link ids are relabeled boundary-last (`scenarios.plan_shards`), so
+    with `halo=B`:
+
+      * ``halo is None`` or 0 — no link is shared: `(buffer, None)`;
+      * ``0 < halo < n_links`` — the tile pair of the reference's
+        `fleet_pallas.link_scatter_tiles`: private (n_links - B,) and
+        boundary (B + 1,) with the scratch slot last (K6 on the kernel
+        backends; the plain buffer split in two on the plain ones);
+      * ``halo == n_links`` — every link is boundary (the contiguous,
+        ``locality=False`` plan): `(None, buffer)`.
+
+    `out` receives the tile (row s of an exchange's stacked buffer).
+    """
+    split = _split_or_uniform(net, split)
+    backend = _resolve_backend(net, backend)
+    nl = net.n_links
+    if halo is not None and not 0 <= halo <= nl:
+        raise ValueError(f"halo {halo} out of [0, {nl}]")
+    if not halo:
+        return _full_buffer(net, rates, split, backend), None
+    if halo == nl:
+        return None, _full_buffer(net, rates, split, backend, out)
+    sub = rates[:, None] * split
+    if backend == "cuda":
+        lay = net.layout
+        csr = None if lay is None else (lay.sort_sub, lay.link_ptr)
+        return fleet_cuda.link_scatter_tiles(_pad_idx(net), sub, nl, halo,
+                                             csr=csr, bnd_out=out)
+    if backend == "pt_cuda":
+        return fleet_cuda.path_table_scatter(net.layout.path_table, sub,
+                                             n_boundary=halo, bnd_out=out)
+    buf = _full_buffer(net, rates, split, backend)
+    priv, bnd = buf[:nl - halo], buf[nl - halo:]
+    return priv, (bnd if out is None else out.copy_(bnd))
+
+
+def assemble_load(private, tile, n_links: int) -> torch.Tensor:
+    """(n_links,) loads from a `scatter_partial` pair after its exchange."""
+    if tile is None:
+        return private[:n_links]
+    if private is None:
+        return tile[:n_links]
+    return torch.cat([private, tile[:-1]])
+
+
+def halo_exchange(tiles: torch.Tensor, *, nbr: Optional[torch.Tensor] = None,
+                  group=None) -> torch.Tensor:
+    """Cross-shard reduction of the boundary tiles of `scatter_partial`.
+
+    Two implementations behind one interface:
+
+      * stacked (`group=None`): `tiles` is the (S, W) stack of every
+        shard's tile, all shards in this process on one device; returns
+        the (S, W) exchanged tiles.  The psum is a sum over the shard dim.
+      * dist: `tiles` is this rank's (W,) tile and `group` a
+        `torch.distributed` process group with one shard per rank; the
+        psum is an `all_reduce`, reduced in place.
+
+    `nbr` switches the psum to the NEIGHBOR exchange, legal when every
+    boundary link is touched by exactly one ring-adjacent shard pair
+    (`shard.neighbor_halo`): (S, 2, P) stacked or this rank's (2, P), in
+    TILE positions (link id - (n_links - halo)), padded with the tile's
+    scratch position.  Row 0 lists the links shared with the right
+    neighbor, row 1 those shared with the left; each shard sends its
+    values at row 1 to the left and at row 0 to the right (two rolls of
+    the stacked send buffers, or `batch_isend_irecv` between ranks) and
+    adds what it receives.  Every touched link then carries the full
+    two-shard sum, bitwise equal to the psum because the other shards'
+    contributions are exact +0.0; links of other pair groups stay stale,
+    and no local flow reads them.
+    """
+    if group is None:
+        if nbr is None:
+            return tiles.sum(dim=0, keepdim=True).expand_as(tiles)
+        to_left = torch.gather(tiles, 1, nbr[:, 1])
+        to_right = torch.gather(tiles, 1, nbr[:, 0])
+        out = tiles.scatter_add(1, nbr[:, 0], torch.roll(to_left, -1, 0))
+        return out.scatter_add_(1, nbr[:, 1], torch.roll(to_right, 1, 0))
+    import torch.distributed as dist
+    if nbr is None:
+        dist.all_reduce(tiles, group=group)
+        return tiles
+    n, p = dist.get_world_size(group), dist.get_rank(group)
+    left = dist.get_global_rank(group, (p - 1) % n)
+    right = dist.get_global_rank(group, (p + 1) % n)
+    to_left, to_right = tiles[nbr[1]], tiles[nbr[0]]
+    from_right, from_left = torch.empty_like(to_left), \
+        torch.empty_like(to_right)
+    ops = [dist.P2POp(dist.isend, to_left, left, group, tag=0),
+           dist.P2POp(dist.isend, to_right, right, group, tag=1),
+           dist.P2POp(dist.irecv, from_right, right, group, tag=0),
+           dist.P2POp(dist.irecv, from_left, left, group, tag=1)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return tiles.index_add_(0, nbr[0], from_right).index_add_(0, nbr[1],
+                                                             from_left)
+
+
+def offered_load(net: FluidNet, rates: torch.Tensor,
+                 split: Optional[torch.Tensor] = None, *,
+                 backend: str = "auto", halo: Optional[int] = None
+                 ) -> torch.Tensor:
+    """(n_links,) aggregate arrival rate from per-flow send rates: flow i
+    adds rates[i] * split[i, p] to every hop of its p-th path.
+
+    `halo` routes the scatter as `scatter_partial` does (the tile pair,
+    K6 on the kernel backends, for ``0 < halo < n_links``) and joins the
+    tiles unexchanged: one shard's own partial load.  The sharded runners
+    (`repro_torch.fleetsim.shard`) put `halo_exchange` between the two.
+    """
+    priv, tile = scatter_partial(net, rates, split, backend=backend,
+                                 halo=halo)
+    return assemble_load(priv, tile, net.n_links)
 
 
 # ---------------------------------------------------- link -> flow gathers
@@ -421,20 +572,17 @@ def _pt_loss_frac(net: FluidNet, p_drop: torch.Tensor) -> torch.Tensor:
     return 1.0 - kref.compose_clean(pt.pre_id, pt.suf_id, seg_keep)
 
 
-def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
-               q_phys: torch.Tensor, q_phantom: torch.Tensor, *,
-               backend: str = "auto", with_loss: bool = False,
-               axis_name=None, halo=None, nbr=None) -> LinkEpoch:
-    """One epoch of link physics: offered load -> queue step -> mark
-    probabilities -> the three link -> flow gathers.
+def link_physics(net: FluidNet, load: torch.Tensor, q_phys: torch.Tensor,
+                 q_phantom: torch.Tensor, *, backend: str = "auto"
+                 ) -> LinkEpoch:
+    """The receive half of an epoch of link physics: from the (exchanged)
+    loads, the queue step, the mark probabilities and the three link ->
+    flow gathers.
 
     A net with `p_loss` thins `sub_scale` by each subflow's survival
-    through its lossy hops.  `with_loss`, `axis_name`, `halo` and `nbr`
-    belong to slices not ported yet and raise.
+    through its lossy hops.
     """
-    not_yet(with_loss=with_loss, axis_name=axis_name, halo=halo, nbr=nbr)
     rb = _resolve_backend(net, backend)
-    load = offered_load(net, rates, split, backend=rb)
     q_phys, q_phantom = step_queues(net, q_phys, q_phantom, load)
     p_link = mark_prob(net, q_phys, q_phantom)
     compressed = rb in ("pt", "pt_cuda")
@@ -459,3 +607,16 @@ def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
     return LinkEpoch(load=load, q_phys=q_phys, q_phantom=q_phantom,
                      p_link=p_link, sub_scale=sub_scale, sub_frac=sub_frac,
                      sub_delay=sub_delay)
+
+
+def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
+               q_phys: torch.Tensor, q_phantom: torch.Tensor, *,
+               backend: str = "auto", with_loss: bool = False,
+               halo: Optional[int] = None) -> LinkEpoch:
+    """One epoch of link physics: `offered_load` (with `halo`, one shard's
+    own partial load) -> `link_physics`.  `with_loss` belongs to the
+    reliability slice, not ported yet, and raises."""
+    not_yet(with_loss=with_loss)
+    rb = _resolve_backend(net, backend)
+    load = offered_load(net, rates, split, backend=rb, halo=halo)
+    return link_physics(net, load, q_phys, q_phantom, backend=rb)

@@ -6,6 +6,12 @@ exchange (``csrc/fleet_kernels.cu``), replacing the Pallas TPU kernels of
     by-segment-sorted CSR entry list.  `link_scatter` (row-1 contract:
     flow -> link offered load), `path_rates` (PathTable stage 1) and
     `path_table_scatter` (stages 1 + 2) are compositions of it.
+  * `segment_sum_tiles` — K6, the same segmented sum with its output cut
+    at `n_links - n_boundary` into a private tile and a boundary tile
+    (scratch slot last), the boundary tile written wherever the caller
+    points it (a row of a halo exchange's stacked buffer).
+    `link_scatter_tiles` (row-6 contract) and the tiled branch of
+    `path_table_scatter` (stage 2) run on it.
   * `row_gathers` — K2, one thread per row of an (R, h) index table:
     min / 1 - prod / sum of the packed per-link values over the row's
     hops.  `link_gathers` (flat, R = n*p rows of max_hops) and
@@ -62,32 +68,87 @@ def _raise_on(err: int, what: str):
 
 # ------------------------------------------------------------------ K1
 
-def segment_sum(vals_ext: torch.Tensor, gather: torch.Tensor,
-                ptr: torch.Tensor, *, use: str = "flat") -> torch.Tensor:
-    """(K + 1,) segment totals of the sorted entries vals_ext[gather]:
-    out[k] sums entries ptr[k]..ptr[k+1] for the K = len(ptr) - 2 real
-    segments; the trailing scratch/sentinel slot out[K] is 0.0.
+def _check_out(out: Optional[torch.Tensor], name: str, n: int):
+    if out is not None:
+        _check(out, name, torch.float32, 1)
+        if out.shape[0] != n:
+            raise ValueError(f"{name}: expected ({n},), got "
+                             f"{tuple(out.shape)}")
 
-    vals_ext: (V,) f32; gather: (E,) int32 ids into vals_ext; ptr:
-    (K + 2,) int32 offsets.  `use` labels the launch count.
-    """
+
+def _csr_operands(vals_ext, gather, ptr) -> int:
+    """Check K1/K6's CSR operands; returns the real segment count."""
     _check(vals_ext, "vals_ext", torch.float32, 1)
     _check(gather, "gather", torch.int32, 1)
     _check(ptr, "ptr", torch.int32, 1)
     if ptr.shape[0] < 2:
         raise ValueError("ptr needs at least 2 offsets")
-    if not _on_cuda(vals_ext, gather, ptr):
-        return ref.csr_segment_sum_ref(vals_ext, gather, ptr)
+    return ptr.shape[0] - 2
+
+
+def segment_sum(vals_ext: torch.Tensor, gather: torch.Tensor,
+                ptr: torch.Tensor, *, use: str = "flat",
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(K + 1,) segment totals of the sorted entries vals_ext[gather]:
+    out[k] sums entries ptr[k]..ptr[k+1] for the K = len(ptr) - 2 real
+    segments; the trailing scratch/sentinel slot out[K] is 0.0.
+
+    vals_ext: (V,) f32; gather: (E,) int32 ids into vals_ext; ptr:
+    (K + 2,) int32 offsets.  `use` labels the launch count; `out`, if
+    given, receives the result.
+    """
+    n_seg = _csr_operands(vals_ext, gather, ptr)
+    _check_out(out, "out", n_seg + 1)
+    extra = () if out is None else (out,)
+    if not _on_cuda(vals_ext, gather, ptr, *extra):
+        got = ref.csr_segment_sum_ref(vals_ext, gather, ptr)
+        return got if out is None else out.copy_(got)
     from repro_torch.kernels import build
     lib = build.load("fleet")
-    n_seg = ptr.shape[0] - 2
-    out = torch.empty(n_seg + 1, dtype=torch.float32, device=vals_ext.device)
+    if out is None:
+        out = torch.empty(n_seg + 1, dtype=torch.float32,
+                          device=vals_ext.device)
     err = lib.uno_link_scatter(vals_ext.data_ptr(), gather.data_ptr(),
                                ptr.data_ptr(), out.data_ptr(), n_seg,
                                torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "uno_link_scatter")
     LAUNCHES["link_scatter/" + use] += 1
     return out
+
+
+def segment_sum_tiles(vals_ext: torch.Tensor, gather: torch.Tensor,
+                      ptr: torch.Tensor, n_boundary: int, *,
+                      use: str = "flat",
+                      bnd_out: Optional[torch.Tensor] = None):
+    """K6: `segment_sum` cut into (private, boundary) tiles at
+    K - n_boundary: private (K - n_boundary,) holds segments below the
+    cut, boundary (n_boundary + 1,) the rest with the scratch/sentinel
+    slot last, 0.0.  On real segments the two tiles concatenated equal
+    `segment_sum` bitwise (same warp order, same sums).  `bnd_out`, if
+    given, receives the boundary tile.  Raises outside
+    0 < n_boundary < K, as `fleet_pallas.link_scatter_tiles` does."""
+    n_seg = _csr_operands(vals_ext, gather, ptr)
+    if not 0 < n_boundary < n_seg:
+        raise ValueError(f"n_boundary {n_boundary} out of (0, {n_seg})")
+    _check_out(bnd_out, "bnd_out", n_boundary + 1)
+    extra = () if bnd_out is None else (bnd_out,)
+    if not _on_cuda(vals_ext, gather, ptr, *extra):
+        priv, bnd = ref.csr_segment_sum_tiles_ref(vals_ext, gather, ptr,
+                                                  n_boundary)
+        return priv, (bnd if bnd_out is None else bnd_out.copy_(bnd))
+    from repro_torch.kernels import build
+    lib = build.load("fleet")
+    dev = vals_ext.device
+    priv = torch.empty(n_seg - n_boundary, dtype=torch.float32, device=dev)
+    bnd = bnd_out if bnd_out is not None else \
+        torch.empty(n_boundary + 1, dtype=torch.float32, device=dev)
+    err = lib.uno_link_scatter_tiles(
+        vals_ext.data_ptr(), gather.data_ptr(), ptr.data_ptr(),
+        priv.data_ptr(), bnd.data_ptr(), n_seg, n_boundary,
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "uno_link_scatter_tiles")
+    LAUNCHES["link_scatter_tiles/" + use] += 1
+    return priv, bnd
 
 
 def sub_vals_ext(sub_vals: torch.Tensor) -> torch.Tensor:
@@ -109,8 +170,8 @@ def csr_from_pad_idx(pad_idx: torch.Tensor, n_links: int):
 
 
 def link_scatter(pad_idx: torch.Tensor, sub_vals: torch.Tensor, n_links: int,
-                 csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                 ) -> torch.Tensor:
+                 csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Flow -> link offered load (the contract of fleet_pallas
     .link_scatter): pad_idx (n, p, h) int32 in [0, n_links], sub_vals
     (n, p) f32 -> (n_links + 1,) f32; real links are the contract, the
@@ -120,7 +181,23 @@ def link_scatter(pad_idx: torch.Tensor, sub_vals: torch.Tensor, n_links: int,
         csr = csr_from_pad_idx(pad_idx, n_links)
     sort_sub, link_ptr = csr
     return segment_sum(sub_vals_ext(sub_vals), sort_sub, link_ptr,
-                       use="flat")
+                       use="flat", out=out)
+
+
+def link_scatter_tiles(pad_idx: torch.Tensor, sub_vals: torch.Tensor,
+                       n_links: int, n_boundary: int,
+                       csr: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                       bnd_out: Optional[torch.Tensor] = None):
+    """The per-shard scatter with the boundary links in their own tile
+    (the contract of fleet_pallas.link_scatter_tiles): the link ids are
+    locality-relabeled, ids below n_links - n_boundary private.  Returns
+    (private (n_links - n_boundary,), boundary (n_boundary + 1,)), the
+    scratch slot last and 0.0."""
+    if csr is None:
+        csr = csr_from_pad_idx(pad_idx, n_links)
+    sort_sub, link_ptr = csr
+    return segment_sum_tiles(sub_vals_ext(sub_vals), sort_sub, link_ptr,
+                             n_boundary, use="flat", bnd_out=bnd_out)
 
 
 def path_rates(pt, sub_vals: torch.Tensor) -> torch.Tensor:
@@ -130,11 +207,19 @@ def path_rates(pt, sub_vals: torch.Tensor) -> torch.Tensor:
                        pt.seg_ptr, use="pt_stage1")
 
 
-def path_table_scatter(pt, sub_vals: torch.Tensor) -> torch.Tensor:
-    """PathTable stages 1 + 2: (n_links + 1,) offered load."""
+def path_table_scatter(pt, sub_vals: torch.Tensor,
+                       n_boundary: Optional[int] = None,
+                       out: Optional[torch.Tensor] = None,
+                       bnd_out: Optional[torch.Tensor] = None):
+    """PathTable stages 1 + 2: the (n_links + 1,) offered load (K1 twice),
+    or with `n_boundary` the (private, boundary) tile pair of
+    `link_scatter_tiles` (K1 for stage 1, K6 for stage 2)."""
     seg = path_rates(pt, sub_vals)
-    return segment_sum(seg, pt.lcsr_gather.reshape(-1), pt.llink_ptr,
-                       use="pt_stage2")
+    if n_boundary is None:
+        return segment_sum(seg, pt.lcsr_gather.reshape(-1), pt.llink_ptr,
+                           use="pt_stage2", out=out)
+    return segment_sum_tiles(seg, pt.lcsr_gather.reshape(-1), pt.llink_ptr,
+                             n_boundary, use="pt_stage2", bnd_out=bnd_out)
 
 
 # ------------------------------------------------------------------ K2

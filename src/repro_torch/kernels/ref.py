@@ -3,14 +3,16 @@
 Fleet flow<->link kernels, in two families:
 
   * the oracles of ``repro.kernels.ref`` (fleet half), restated in torch:
-    `fleet_offered_load_ref` (one `index_add_` into an (L+1,) buffer),
+    `fleet_offered_load_ref` (one `index_add_` into an (L+1,) buffer), its
+    per-shard tile split `fleet_offered_load_tiles_ref`,
     `fleet_link_gathers_ref`, and the PathTable pair
     `fleet_pt_offered_load_ref` / `fleet_pt_gathers_ref`;
-  * the exact functions the two CUDA kernels compute, on the kernels' own
+  * the exact functions the CUDA kernels compute, on the kernels' own
     operands: `csr_segment_sum_ref` (K1, a segmented sum over a sorted CSR
-    entry list) and `row_gathers_ref` (K2, min / 1-prod / sum over the
-    hops of each row of an index table, reduced hop by hop in the same
-    order as the kernel so the results are bitwise comparable).
+    entry list), `csr_segment_sum_tiles_ref` (K6, the same cut into
+    private and boundary tiles) and `row_gathers_ref` (K2, min / 1-prod /
+    sum over the hops of each row of an index table, reduced hop by hop in
+    the same order as the kernel so the results are bitwise comparable).
 
 UnoRC kernels (``repro.kernels.ref``'s GF and quant half): `gf_mul_ref`,
 `gf_matmul_ref` (log/exp table gathers, XOR-accumulated), `rs_encode_ref`,
@@ -43,6 +45,16 @@ def fleet_offered_load_ref(routes, rates, split, n_links: int):
     per_hop = (rates[:, None] * split)[:, :, None] * hop_mask
     buf = torch.zeros(n_links + 1, dtype=rates.dtype, device=rates.device)
     return buf.index_add_(0, pad_idx.reshape(-1).long(), per_hop.reshape(-1))
+
+
+def fleet_offered_load_tiles_ref(routes, rates, split, n_links: int,
+                                 n_boundary: int):
+    """Oracle of the per-shard tiled scatter (fleet_pallas
+    .link_scatter_tiles): the (n_links + 1,) buffer of
+    `fleet_offered_load_ref` split at n_links - n_boundary into (private,
+    boundary + scratch) tiles.  Only the real links are the contract."""
+    buf = fleet_offered_load_ref(routes, rates, split, n_links)
+    return buf[:n_links - n_boundary], buf[n_links - n_boundary:]
 
 
 def append_identity(v, fill: float):
@@ -120,6 +132,15 @@ def csr_segment_sum_ref(vals_ext, gather, ptr):
         output_size=live)
     out = torch.zeros(k + 1, dtype=vals_ext.dtype, device=vals_ext.device)
     return out.index_add_(0, keys, vals_ext[gather[:live].long()])
+
+
+def csr_segment_sum_tiles_ref(vals_ext, gather, ptr, n_boundary: int):
+    """K6's function: `csr_segment_sum_ref` cut at K - n_boundary into
+    (private (K - n_boundary,), boundary (n_boundary + 1,)) tiles, the
+    scratch/sentinel slot (0.0) last."""
+    out = csr_segment_sum_ref(vals_ext, gather, ptr)
+    cut = ptr.shape[0] - 2 - n_boundary
+    return out[:cut], out[cut:]
 
 
 def pack_link_values(scale, clean, delay):

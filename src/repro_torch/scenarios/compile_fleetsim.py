@@ -12,6 +12,7 @@ part of this slice.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro_torch.fleetsim.links import FluidNet, compute_layout
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, LbParams,
                                         make_params)
 from repro_torch.scenarios.fat_tree import link_tiers
+from repro_torch.scenarios.multi_dc import link_dcs
 from repro_torch.scenarios.spec import Scenario
 
 _ADAPTIVE_KINDS = ("unolb", "plb")
@@ -37,6 +39,9 @@ class FleetScenario(NamedTuple):
     churn: Optional[ChurnParams]     # None -> every flow backlogged
     seed: int
     link_tier: Optional[np.ndarray] = None   # (n_links,) locality tiers
+    link_dc: Optional[np.ndarray] = None     # (n_links,) datacenter id per
+    # link, -1 on WAN mesh links (host-side; feeds the planner's DC-major
+    # shard order — None on topologies without DC structure)
 
 
 def _flow_adaptive(g) -> bool:
@@ -163,4 +168,250 @@ def to_fleetsim(spec: Scenario, *, device=None,
 
     return FleetScenario(net=net, params=params, is_inter=is_inter, lb=lb,
                          churn=churn, seed=spec.seed,
-                         link_tier=link_tiers(spec))
+                         link_tier=link_tiers(spec), link_dc=link_dcs(spec))
+
+
+# ------------------------------------------------ locality shard planning
+
+class ShardPlan(NamedTuple):
+    """Host-side (numpy) link-locality flow partition.
+
+    Link ids are RELABELED: `new2old` lists old ids in the new order —
+    first every shard's private links as contiguous ranges (shard s owns
+    new ids [owner_ptr[s], owner_ptr[s+1])), then the `n_boundary`
+    boundary links (touched by flows of 2+ shards) at the tail.  Flows are
+    permuted into per-shard rows: `gather[s, r]` is the ORIGINAL flow id
+    sitting in shard s's r-th local row, with `n_real` marking inert
+    padding rows (compiled to all-(-1) routes).  Links no flow touches are
+    folded into shard 0's private range (their load is identically zero).
+    """
+    n_shards: int
+    n_real: int              # original flow count (gather pads with this)
+    n_links: int
+    n_boundary: int
+    gather: np.ndarray       # (n_shards, rows) int32 original flow ids
+    new2old: np.ndarray      # (n_links,) int32: old link id per new id
+    old2new: np.ndarray      # (n_links,) int32 inverse relabeling
+    owner_ptr: np.ndarray    # (n_shards + 1,) int32 private-range offsets
+    boundary_pairs: Optional[np.ndarray] = None  # (n_boundary, 2) int32
+    # sorted toucher-shard pair per boundary link IN TAIL ORDER, (-1, -1)
+    # when 3+ shards touch it — the neighbor halo exchange is legal only
+    # when every row is a ring-adjacent pair (shard.neighbor_halo checks)
+
+    @property
+    def rows(self) -> int:
+        return self.gather.shape[1]
+
+    @property
+    def boundary_frac(self) -> float:
+        return self.n_boundary / max(self.n_links, 1)
+
+    @property
+    def flat_gather(self) -> np.ndarray:
+        return self.gather.reshape(-1)
+
+    @property
+    def inverse_flow(self) -> np.ndarray:
+        """(n_real,) position of each original flow in the permuted order."""
+        flat = self.flat_gather
+        real = flat < self.n_real
+        inv = np.empty(self.n_real, np.int64)
+        inv[flat[real]] = np.flatnonzero(real)
+        return inv
+
+
+def _home_links(routes3: np.ndarray, n_links: int, n_shards: int,
+                link_tier: Optional[np.ndarray] = None):
+    """Pick each flow's "home" link — the hop that best localizes it.
+
+    Returns (home, no_nonhub): the chosen link per flow plus the mask of
+    flows that had NO non-hub hop to choose from.  Without tiers the
+    preference is the most-shared link that is not a hub (a link touched
+    by >= ceil(n_flows / n_shards) distinct flows), falling back to the
+    rarest hop; with `link_tier` the score is lexicographic (non-hub
+    first, then lowest tier, then latest hop), so fat-tree flows home on
+    their most receiver-side edge link.  Hub-ness counts FLOWS: link ids
+    are deduped per flow before the fan-in count (multipath route tensors
+    repeat the shared first/last hop on every path).
+    """
+    n = routes3.shape[0]
+    pidx = np.where(routes3 >= 0, routes3, n_links).reshape(n, -1)
+    srt = np.sort(pidx, axis=1)
+    fresh = np.concatenate(
+        [np.ones((n, 1), bool), srt[:, 1:] != srt[:, :-1]], axis=1)
+    counts = np.bincount(srt[fresh], minlength=n_links + 1)[:n_links]
+    counts_ext = np.concatenate([counts, [0]])
+    hub_ext = np.concatenate(
+        [counts >= max(2, -(-n // n_shards)), [True]])
+    c = counts_ext[pidx]                          # (n, p*h)
+    nonhub_score = np.where((c > 0) & ~hub_ext[pidx], c, -1)
+    no_nonhub = nonhub_score.max(axis=1) < 0
+
+    if link_tier is not None:
+        tiers = np.asarray(link_tier, np.int64)
+        if tiers.shape != (n_links,):
+            raise ValueError(
+                f"link_tier must have shape ({n_links},), got {tiers.shape}")
+        t_span = int(tiers.max() - tiers.min()) + 2 if n_links else 2
+        tier_ext = np.concatenate([tiers - tiers.min(), [t_span - 1]])
+        ph = pidx.shape[1]
+        # lexicographic argmin over (is_hub, tier, prefer-latest-hop);
+        # padding entries (c == 0) are pushed past every real key
+        key = (hub_ext[pidx].astype(np.int64) * t_span + tier_ext[pidx]) \
+            * (ph + 1) + (ph - np.arange(ph))
+        key = np.where(c > 0, key, np.iinfo(np.int64).max)
+        home = pidx[np.arange(n), np.argmin(key, axis=1)]
+    else:
+        home = pidx[np.arange(n), np.argmax(nonhub_score, axis=1)]
+        if np.any(no_nonhub):
+            rare = np.where(c > 0, c, np.iinfo(np.int64).max)
+            fb = pidx[np.arange(n), np.argmin(rare, axis=1)]
+            home = np.where(no_nonhub, fb, home)
+    # routeless flows -> link 0
+    return np.where(home >= n_links, 0, home), no_nonhub
+
+
+def _rehome_sender_uplinks(r3: np.ndarray, home: np.ndarray,
+                           n_links: int) -> np.ndarray:
+    """Rehome every flow sharing a first hop (sender uplink) onto the
+    group's MODAL home link (ties -> smaller link id), so first-hop links
+    localize too."""
+    f0 = r3[:, 0, 0]
+    ok = f0 >= 0
+    if not np.any(ok):
+        return home
+    uniq, inv = np.unique(f0[ok], return_inverse=True)
+    key = inv.astype(np.int64) * (n_links + 1) + home[ok]
+    pairs, counts = np.unique(key, return_counts=True)
+    pg = pairs // (n_links + 1)
+    ph = pairs % (n_links + 1)
+    best = np.lexsort((ph, -counts, pg))      # group asc, count desc
+    lead = np.unique(pg[best], return_index=True)[1]
+    modal = np.empty(uniq.shape[0], np.int64)
+    modal[pg[best[lead]]] = ph[best[lead]]
+    out = home.copy()
+    out[ok] = modal[inv]
+    return out
+
+
+def plan_shards(routes, n_links: int, n_shards: int,
+                link_tier: Optional[np.ndarray] = None, *,
+                seed: int = 0,
+                link_dc: Optional[np.ndarray] = None,
+                sender_private: bool = False) -> ShardPlan:
+    """Partition flows by link locality into `n_shards` balanced shards.
+
+    Flows are sorted by home link (`_home_links`) and cut into equal
+    contiguous chunks (each padded to the common row count with inert
+    flows); boundary status is then derived from the ACTUAL assignment —
+    a link is private iff flows of at most one shard touch it.
+
+    `link_dc` makes the shard order DC-major: flows sort by (home link's
+    DC, home link), and at n_shards == n_dc the cut lands on the DC-group
+    boundaries themselves (shard s IS datacenter s; shards pad to the
+    largest DC's flow count).  `sender_private=True` rehomes every
+    first-hop group onto its modal home (`_rehome_sender_uplinks`).
+
+    Hub splitting: a home link saturated past one shard's row budget is
+    split across ADJACENT shards by the contiguous cut, its flows dealt in
+    seeded order.  Degenerate case: when every hop of every flow is a hub
+    and no tiers are given, flows are dealt round-robin into balanced
+    shards in a seed-determined order, with a RuntimeWarning.
+    `boundary_pairs` records each boundary link's toucher pair.
+    """
+    r = routes.cpu().numpy() if hasattr(routes, "cpu") else \
+        np.asarray(routes)
+    r3 = r if r.ndim == 3 else r[:, None, :]
+    n = r3.shape[0]
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    home, no_nonhub = _home_links(r3, n_links, n_shards, link_tier)
+    if sender_private and n:
+        home = _rehome_sender_uplinks(r3, home, n_links)
+    flow_shard = np.empty(n, np.int32)
+    if link_tier is None and n and no_nonhub.all() and n_shards > 1:
+        warnings.warn(
+            "plan_shards: every hop of every flow is a hub — no home link "
+            "localizes anything; dealing flows round-robin into balanced "
+            "shards (pass link_tier for locality grouping on multi-tier "
+            "topologies)", RuntimeWarning, stacklevel=2)
+        rows = -(-n // n_shards)
+        gather = np.full((n_shards, rows), n, np.int32)
+        deal = np.random.default_rng([seed, 0x5EED]).permutation(n)
+        deal = deal.astype(np.int32)
+        flow_shard[deal] = np.arange(n, dtype=np.int32) % n_shards
+        for s in range(n_shards):
+            chunk = deal[s::n_shards]
+            gather[s, :chunk.shape[0]] = chunk
+    else:
+        dc_home = None
+        if link_dc is not None:
+            dc = np.asarray(link_dc, np.int64)
+            if dc.shape != (n_links,):
+                raise ValueError(f"link_dc must have shape ({n_links},), "
+                                 f"got {dc.shape}")
+            dc_home = dc[home]
+            key = (dc_home - dc.min()) * np.int64(n_links + 1) + home
+        else:
+            key = home.astype(np.int64)
+        order = np.argsort(key, kind="stable")
+        aligned = (dc_home is not None and n
+                   and int(dc.max()) + 1 == n_shards
+                   and dc_home.min() >= 0)
+        if aligned:
+            # DC-aligned cut: shard s = datacenter s
+            sizes = np.bincount(dc_home, minlength=n_shards)
+            rows = max(int(sizes.max()), 1)
+            gather = np.full((n_shards, rows), n, np.int32)
+            ptr = np.concatenate([[0], np.cumsum(sizes)])
+            for s in range(n_shards):
+                chunk = order[ptr[s]:ptr[s + 1]]
+                gather[s, :chunk.shape[0]] = chunk
+                flow_shard[chunk] = s
+        else:
+            rows = -(-n // n_shards)
+            gather = np.full((n_shards, rows), n, np.int32)
+            counts_home = np.bincount(home, minlength=n_links) if n else \
+                np.zeros(n_links, np.int64)
+            fat = np.flatnonzero(counts_home > rows)
+            if fat.size:  # hub splitting: deal saturated groups seeded
+                rng = np.random.default_rng([seed, 0x4B5])
+                ksort = key[order]
+                for h in fat:
+                    kv = key[np.flatnonzero(home == h)[0]]
+                    a, b = np.searchsorted(ksort, [kv, kv + 1])
+                    seg = order[a:b].copy()
+                    order[a:b] = seg[rng.permutation(b - a)]
+            for s in range(n_shards):
+                chunk = order[s * rows:(s + 1) * rows]
+                gather[s, :chunk.shape[0]] = chunk
+            flow_shard[order] = np.minimum(np.arange(n) // rows,
+                                           n_shards - 1)
+    flat = r3.reshape(n, -1)
+    valid = flat >= 0
+    touched = np.zeros((n_shards, n_links), bool)
+    touched[np.repeat(flow_shard, flat.shape[1]).reshape(n, -1)[valid],
+            flat[valid]] = True
+    n_touching = touched.sum(axis=0)
+    boundary = n_touching >= 2
+    owner = np.where(n_touching == 1, np.argmax(touched, axis=0), 0)
+
+    priv = [np.flatnonzero(~boundary & (owner == s))
+            for s in range(n_shards)]
+    new2old = np.concatenate(priv + [np.flatnonzero(boundary)]).astype(
+        np.int32)
+    old2new = np.empty(n_links, np.int32)
+    old2new[new2old] = np.arange(n_links, dtype=np.int32)
+    owner_ptr = np.concatenate(
+        [[0], np.cumsum([p.shape[0] for p in priv])]).astype(np.int32)
+    bidx = np.flatnonzero(boundary)
+    pairs = np.full((bidx.shape[0], 2), -1, np.int32)
+    if bidx.size:
+        two = n_touching[bidx] == 2
+        pairs[two, 0] = np.argmax(touched[:, bidx], axis=0)[two]
+        pairs[two, 1] = (n_shards - 1
+                         - np.argmax(touched[::-1, bidx], axis=0))[two]
+    return ShardPlan(n_shards=n_shards, n_real=n, n_links=n_links,
+                     n_boundary=int(boundary.sum()), gather=gather,
+                     new2old=new2old, old2new=old2new, owner_ptr=owner_ptr,
+                     boundary_pairs=pairs)

@@ -1,7 +1,8 @@
 """The port's scenario layer and fluid compiler against the JAX reference:
 specs equal field for field, and `to_fleetsim` arrays equal array for array
 (int arrays exactly, float arrays as float32), including every RouteLayout
-and PathTable field.  Also the port's device rule (no silent CPU fallback)
+and PathTable field (multi-DC specs with their `link_dc` too).  Also the
+port's device rule (no silent CPU fallback)
 and its independence from JAX and the reference package."""
 import ast
 import functools
@@ -75,6 +76,14 @@ SPECS = {
         k=4, n_wan=2, n_flows=40, n_paths=8, workload="incast", seed=11),
     "fat_tree_k6": lambda M: M.fat_tree_spec(k=6, n_wan=3, n_flows=150,
                                              n_paths=6, seed=2),
+    "multi_dc_ring": lambda M: M.multi_dc_spec(k=4, n_dc=3, mesh="ring",
+                                               n_flows=60, n_paths=4,
+                                               seed=1),
+    "multi_dc_hubspoke": lambda M: M.multi_dc_spec(
+        k=4, n_dc=4, mesh="hubspoke", oversub=2.0, n_flows=50, n_paths=6,
+        seed=2),
+    "multi_dc_full_two": lambda M: M.multi_dc_spec(
+        k=4, n_dc=2, mesh="full", n_wan=2, n_flows=45, n_paths=8, seed=3),
 }
 
 
@@ -113,10 +122,11 @@ def test_to_fleetsim_arrays_equal_reference(name):
     else:
         _assert_tuple_same(ref.lb, port.lb, "lb")
     _assert_same(ref.is_inter, port.is_inter, "is_inter")
-    if ref.link_tier is None:
-        assert port.link_tier is None
-    else:
-        _assert_same(ref.link_tier, port.link_tier, "link_tier")
+    for f in ("link_tier", "link_dc"):
+        if getattr(ref, f) is None:
+            assert getattr(port, f) is None, f
+        else:
+            _assert_same(getattr(ref, f), getattr(port, f), f)
     assert ref.seed == port.seed
 
 
