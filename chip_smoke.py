@@ -16,7 +16,13 @@ Phases, each printing one JSON line:
                per-link relative error <= 1e-6 for the scatter (against
                the plain version evaluated in float64), exact min and
                rtol 1e-6 product / sum for the gathers, two runs bitwise
-               equal, median CUDA-event time over 25 launches;
+               equal, median CUDA-event time over 25 launches; each
+               scatter also bitwise equal to its tiled plain version
+               (`csr_segment_sum_tiled_ref`) on integer-valued inputs,
+               called once under `torch.cuda.set_sync_debug_mode("error")`
+               (no host sync), its device kernels and device time per
+               call read from the profiler; a scatter's time is the
+               wrapper call's (K6's tile pair, not concatenated);
   4. main    — the two-DC k=8 fat tree, 100k flows, 8 ECMP paths,
                permutation mix, compiled by the port and run through
                `steady_state(scheme="uno")` on the `pt_cuda` kernels, then
@@ -226,9 +232,11 @@ def kernel_phase(net, dev, flat_path=None, pt_path=None, tag="", halo=None):
         live = int(ptr[k])
 
         if tiled:
+            def call():
+                return K.segment_sum_tiles(v_ext, gather, ptr, halo, use=use)
+
             def kernel():
-                return torch.cat(K.segment_sum_tiles(v_ext, gather, ptr,
-                                                     halo, use=use))
+                return torch.cat(call())
 
             def plain_fn():
                 return ref.csr_segment_sum_tiles_ref(v_ext, gather, ptr,
@@ -236,6 +244,7 @@ def kernel_phase(net, dev, flat_path=None, pt_path=None, tag="", halo=None):
         else:
             def kernel():
                 return K.segment_sum(v_ext, gather, ptr, use=use)
+            call = kernel
 
             def plain_fn():
                 return ref.csr_segment_sum_ref(v_ext, gather, ptr)
@@ -257,6 +266,28 @@ def kernel_phase(net, dev, flat_path=None, pt_path=None, tag="", halo=None):
                          bitwise_equal_k1=bool(torch.equal(out1[:k],
                                                            k1[:k])))
             check(extra["bitwise_equal_k1"], f"{name}: differs from K1")
+        # the tile edges change nothing: on integer values, where every
+        # summation order is exact, bitwise equal to the tiled plain
+        # version (and so to the plain sum)
+        v_int = torch.randint(0, 16, v_ext.shape, generator=g, device=dev,
+                              dtype=torch.int32).float()
+        got_int = torch.cat(K.segment_sum_tiles(v_int, gather, ptr, halo,
+                                                use=use)) if tiled else \
+            K.segment_sum(v_int, gather, ptr, use=use)
+        want_int = ref.csr_segment_sum_tiled_ref(v_int, gather, ptr)
+        extra["bitwise_equal_tiled_ref"] = bool(
+            torch.equal(got_int, want_int) and torch.equal(
+                want_int, ref.csr_segment_sum_ref(v_int, gather, ptr)))
+        check(extra["bitwise_equal_tiled_ref"],
+              f"{name}: differs from the tiled plain version")
+        # the wrapper makes no host sync
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        extra["no_host_sync"] = True
         # library yardstick: one index_add_ over the gathered entries
         keys = torch.repeat_interleave(
             torch.arange(k, device=dev), (ptr[1:k + 1] - ptr[:k]).long(),
@@ -272,11 +303,12 @@ def kernel_phase(net, dev, flat_path=None, pt_path=None, tag="", halo=None):
             max_abs_err=float(torch.max(torch.abs(out1 - plain))),
             max_rel_err_f64=rel, bitwise_repeat=bool(torch.equal(out1,
                                                                  out2)),
-            ms=time_ms(kernel), plain_ms=time_ms(plain_fn),
+            ms=time_ms(call), plain_ms=time_ms(plain_fn),
             bound_ms=bound_ms(n_bytes), bound_by="bytes",
             library_ms=time_ms(lambda: lib_out.index_add_(0, keys,
                                                           gathered)),
-            bytes=n_bytes, entries=live, segments=k, **extra))
+            bytes=n_bytes, entries=live, segments=k,
+            **call_profile(call), tile=ref.SEGSUM_TILE, **extra))
         check(records[-1]["bitwise_repeat"], f"{name}: runs differ")
         return out1
 
@@ -448,6 +480,30 @@ def device_profile(fn, n: int) -> dict:
         device_idle_share=(1.0 - busy_us / 1e6 / wall) if n_kernels
         else None,
         top_kernels_us_per_call={k[:60]: t / n for k, (t, _) in top})
+
+
+def call_profile(fn, n: int = 20) -> dict:
+    """Device kernels and device time per call of `fn`, from a
+    torch.profiler trace of n calls (after one warm-up call).  Sleep
+    kernels open and close the trace and are not counted: the profiler
+    can miss the first and last events of a short session."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1_000_000)
+        for _ in range(n):
+            fn()
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+    return dict(device_kernels_per_call=len(kernels) / n,
+                device_us_per_call=sum(e.time_range.elapsed_us()
+                                       for e in kernels) / n)
 
 
 def profile_step(fs, state, n: int = 20):

@@ -30,8 +30,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> {C entry point: argtypes}; every entry point returns an int error
 _SIGNATURES = {
-    "fleet": {"uno_link_scatter": [_P, _P, _P, _P, _I, _P],
-              "uno_link_scatter_tiles": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "fleet": {"uno_segsum_tile": [],
+              "uno_link_scatter": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+              "uno_link_scatter_tiles": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _I, _P],
               "uno_link_gathers": [_P, _P, _P, _P, _P, _I, _I, _P]},
     "unorc": {"uno_gf_matmul": [_P, _P, _P, _LL, _I, _I, _LL, _I, _P],
               "uno_quant_int8": [_P, _P, _P, _LL, _LL, _LL, _P],

@@ -11,31 +11,66 @@
 //                                branch of path_table_scatter.
 //
 // The TPU kernels turn the sparse access into one-hot matmuls because the
-// TPU vector unit has no per-lane gather.  Hopper has real gathers, so both
-// kernels index directly:
+// TPU vector unit has no per-lane gather.  Hopper has real gathers, so the
+// kernels index directly.
 //
-// K1 is a deterministic segmented sum over a by-segment-sorted CSR entry
-// list: out[k] = sum_{e in [ptr[k], ptr[k+1])} vals[gather[e]].  One warp
-// owns one output segment; its lanes stride over the segment's entries,
-// each lane accumulating in a fixed order, then a fixed butterfly of warp
-// shuffles combines the 32 partial sums.  No float atomics, so the result
-// is bitwise reproducible from run to run.  The trailing segment (the
-// scratch slot of -1 hops, or the block-padding sentinel) is outside the
-// contract and is written 0.0 without reading its entries.  Bound: bytes
-// (each entry reads a 4-byte id and gathers a 4-byte value, L2-resident at
-// the fleet sizes here); the warp-per-segment split is load-imbalanced
-// when segment lengths differ widely.
+// K1 and K6 are one deterministic segmented sum over a by-segment-sorted
+// CSR entry list, out[k] = sum_{e in [ptr[k], ptr[k+1])} vals[gather[e]],
+// balanced by entries rather than by segments.  Segment lengths in the
+// fleet layouts run from 1 to 50,000 entries, so a worker per segment
+// leaves lanes idle on short segments, the card idle when there are few
+// segments, and one worker walking the longest.  Here each block owns a
+// fixed tile of kTile = 2,048 consecutive entries (256 threads x 8),
+// whatever the segments, in one kernel:
 //
-// K6 is K1 with its output cut in two.  The TPU kernel accumulates a
-// one-hot matmul into two revisited output blocks (private links, then the
-// boundary links plus the scratch slot), so the boundary tile leaves the
-// kernel as its own buffer for the sharded run's halo exchange.  Here each
-// warp computes its segment exactly as K1 does (the same device function,
-// so the two are bitwise equal on real links) and stores it below the cut
-// n_seg - n_boundary into the private tile, at or above it into the
-// boundary tile; the boundary pointer may be any row of the caller's
-// stacked exchange buffer, so the exchange reads it without a copy.  Bound
-// and imbalance: K1's.
+//   1. Each thread streams its 8 contiguous gather ids with two 16-byte
+//      loads.  Meanwhile the block finds the first segment starting in
+//      the tile: 256-ary steps over ptr (L2-resident) narrow the range to
+//      256 offsets, and the block loads a window of 512 offsets from
+//      there into shared memory.  From the window it marks each non-empty
+//      segment's first entry in a shared bitmask of the tile, with the
+//      segment's id beside it, and writes each empty segment +0.0.  Only
+//      then does each thread gather its 8 values from L2: issued earlier,
+//      the tile's gathers would hold the search's few loads up.
+//   2. A fixed-order segmented scan (in-thread, warp shuffles, then the 8
+//      warp totals) over (sum, position of the last start) gives each
+//      entry its segment's running sum in the tile.
+//   3. A segment lying wholly in the tile is written by the thread that
+//      holds its last entry.
+//   4. A segment over tiles first..last leaves one piece per tile in
+//      scratch the wrapper allocates: `carry` for a piece that runs past
+//      its tile's end, `head_sum` for the piece in its last tile.  Each
+//      piece's thread then takes a ticket at ticket[last] with an
+//      acquire-release add; the one that draws last - first (the last
+//      piece in) adds the pieces in tile order, carries first to last - 1
+//      then the head, writes the sum and resets the ticket to 0.  The ticket buffer is kept zeroed by the
+//      wrapper between calls, so no second kernel and no memset is needed.
+//
+// Every real segment is written once, by one owner: a segment inside one
+// tile by that tile, an empty one (+0.0) by the tile holding its offset,
+// a spanning one by the tile whose piece lands last.  No float atomics and
+// a fixed order of every add, so two runs are bitwise equal whichever
+// tile finishes a segment.  The trailing segment (the scratch slot of -1
+// hops, or the block-padding sentinel) is outside the contract: out[K] is
+// written 0.0 and entries at or past ptr[K] are never read.  ptr[K] is
+// read on the device, so the wrappers make no host sync; ptr[0] must be 0
+// and ptr[K] at most the entry count E.  The grid covers [0, E], so the
+// tile holding ptr[K] exists; tiles past it exit at once.
+//
+// Bound: bytes.  Each live entry streams its 4-byte id once from device
+// memory and gathers a 4-byte value (L2-resident at the fleet sizes
+// here); ptr is read a few times per tile.  A random 4-byte gather moves
+// a 32-byte L2 sector, so the large CSRs run at the L2's sector rate, not
+// at the byte bound; the small ones are latency: one tile is a chain of
+// dependent loads (ptr[K], ids, values), barriers and the scan, fetched
+// into a cold SM's instruction cache.  PERF.md has the measurements.
+//
+// K6 is K1 with its output cut in two, as the TPU kernel's two revisited
+// output blocks (private links, then the boundary links plus the scratch
+// slot) are: every store goes below the cut n_seg - n_boundary into the
+// private tile, at or above it into the boundary tile, whose pointer may
+// be any row of the sharded run's stacked exchange buffer.  Both run the
+// same kernel, so K6 equals K1 bitwise.
 //
 // K2 runs one thread per row of an (R, h) index table: it loops over the
 // row's h hops, reads the packed per-link float4 (scale, clean, delay, 0)
@@ -47,68 +82,273 @@
 // caller's stream and returns cudaGetLastError() right after the launch.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 8;                    // entries per thread
+constexpr int kTile = kThreads * kItems;     // entries per block
+constexpr int kWin = 2 * kThreads;           // ptr offsets a block loads at once
 
-// Segment `seg`'s total, valid in lane 0: lanes stride over the entries in
-// a fixed order, then a fixed shuffle tree combines the 32 partial sums.
-__device__ __forceinline__ float warp_segment_sum(
-    const float* __restrict__ vals, const int* __restrict__ gather,
-    const int* __restrict__ ptr, int seg, int lane) {
-  const int a = __ldg(ptr + seg);
-  const int b = __ldg(ptr + seg + 1);
-  float acc = 0.0f;
+// The output cut: segment k goes to priv[k] below n_priv, else to
+// bnd[k - n_priv].  K1 passes n_priv = n_seg + 1, so all goes to priv.
+struct Out {
+  float* priv;
+  float* bnd;
+  int n_priv;
+  __device__ __forceinline__ void store(int k, float v) const {
+    *(k < n_priv ? priv + k : bnd + (k - n_priv)) = v;
+  }
+};
+
+// A segmented-sum scan element: the sum since the last segment start in
+// the tile, and that start's tile position (-1 before the first start).
+struct Part {
+  float v;
+  int pos;
+};
+
+// a then b
+__device__ __forceinline__ Part combine(const Part& a, const Part& b) {
+  return b.pos >= 0 ? b : Part{a.v + b.v, a.pos};
+}
+
+// Segment k starts at tile position pos.
+__device__ __forceinline__ void mark_start(unsigned* starts, int* seg_at,
+                                           int pos, int k) {
+  seg_at[pos] = k;
+  atomicOr(starts + (pos >> 5), 1u << (pos & 31));
+}
+
+// Step 4: tile b's piece `acc` of segment `seg`, which runs over tiles
+// first..last.  The tile whose piece arrives last adds all of them in
+// tile order and resets the ticket.  The ticket's add is acquire-release:
+// it publishes this piece and, to the last arrival, all earlier ones.
+// Out of line: it runs at most twice per thread, and inlined it bloats
+// the kernel.
+__device__ __noinline__ void segsum_piece(Out out, float* carry,
+                                          float* head_sum, unsigned* ticket,
+                                          int b, int seg, float acc,
+                                          int first, int last) {
+  if (last > b) {
+    carry[b] = acc;                          // runs on past this tile
+  } else {
+    head_sum[b] = acc;                       // ends in this tile
+  }
+  unsigned drawn;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(drawn) : "l"(ticket + last) : "memory");
+  if (drawn != (unsigned)(last - first)) return;
+  ticket[last] = 0u;                         // ready for the next call
+  float sum = __ldcg(carry + first);
 #pragma unroll 4
-  for (int e = a + lane; e < b; e += 32) {
-    acc += __ldg(vals + __ldg(gather + e));
-  }
+  for (int c = first + 1; c < last; ++c) sum += __ldcg(carry + c);
+  out.store(seg, sum + __ldcg(head_sum + last));
+}
+
+// The whole segmented sum (see the note above): one block per tile.
+__global__ void __launch_bounds__(kThreads)
+segsum_tile_kernel(const float* __restrict__ vals,
+                   const int* __restrict__ gather,
+                   const int* __restrict__ ptr, Out out, int n_seg,
+                   float* __restrict__ carry, float* __restrict__ head_sum,
+                   unsigned* __restrict__ ticket) {
+  __shared__ unsigned starts[kTile / 32 + 1];  // bit i: a segment starts at i
+  __shared__ int seg_at[kTile];      // that segment, where the bit is set
+  __shared__ int win[kWin + 1];      // a window of ptr at the tile start
+  __shared__ Part warp_total[kWarps];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  const int t0 = b * kTile;
+  const int live = __ldg(ptr + n_seg);
+  if (b == 0 && tid == 0) out.store(n_seg, 0.0f);   // scratch / sentinel
+  if (t0 > live) return;
+  const int t1 = min(t0 + kTile, live);
+
+  // this thread's entries [e0, e0 + kItems): the ids streamed now, the
+  // values gathered after step 1, so that step 1's few loads of ptr do not
+  // queue behind the tile's gathers
+  const int i0 = tid * kItems;
+  const int e0 = t0 + i0;
+  int id[kItems];
+  if (e0 + kItems <= t1 && (reinterpret_cast<uintptr_t>(gather) & 15) == 0) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
-  return acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-link_scatter_kernel(const float* __restrict__ vals,
-                    const int* __restrict__ gather,
-                    const int* __restrict__ ptr,
-                    float* __restrict__ out, int n_seg) {
-  const int warp = (int)((blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp > n_seg) return;
-  if (warp == n_seg) {                 // scratch / sentinel slot
-    if (lane == 0) out[n_seg] = 0.0f;
-    return;
-  }
-  const float acc = warp_segment_sum(vals, gather, ptr, warp, lane);
-  if (lane == 0) out[warp] = acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-link_scatter_tiles_kernel(const float* __restrict__ vals,
-                          const int* __restrict__ gather,
-                          const int* __restrict__ ptr,
-                          float* __restrict__ priv,
-                          float* __restrict__ bnd, int n_seg, int n_priv) {
-  const int warp = (int)((blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp > n_seg) return;
-  if (warp == n_seg) {                 // scratch / sentinel slot, bnd last
-    if (lane == 0) bnd[n_seg - n_priv] = 0.0f;
-    return;
-  }
-  const float acc = warp_segment_sum(vals, gather, ptr, warp, lane);
-  if (lane == 0) {
-    if (warp < n_priv) {
-      priv[warp] = acc;
-    } else {
-      bnd[warp - n_priv] = acc;
+    for (int q = 0; q < kItems / 4; ++q) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(gather + e0) + q);
+      id[4 * q] = x.x;
+      id[4 * q + 1] = x.y;
+      id[4 * q + 2] = x.z;
+      id[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      id[j] = e0 + j < t1 ? __ldg(gather + e0 + j) : -1;
     }
   }
+  if (tid <= kTile / 32) starts[tid] = 0u;
+
+  // step 1: k_lo, the first segment starting at or after t0.  Block-wide
+  // kThreads-ary steps narrow [lo, hi) to at most kThreads offsets; the
+  // block then loads a window of kWin offsets from lo, counts those below
+  // t0 for k_lo, and marks from the window what starts in the tile.
+  int lo = 0, hi = b == 0 ? 0 : n_seg;       // tile 0: k_lo = 0 (ptr[0] = 0)
+  while (hi - lo > kThreads) {
+    const int64_t span = hi - lo;
+    const int a = __ldg(ptr + lo + (int)(span * tid / kThreads));
+    const int nb = __syncthreads_count(a < t0);
+    if (nb == 0) {
+      hi = lo;
+    } else {
+      if (nb < kThreads) hi = lo + (int)(span * nb / kThreads);
+      lo += (int)(span * (nb - 1) / kThreads) + 1;
+    }
+  }
+  // the window: ptr[lo .. lo + kWin], two offsets a thread, one round trip
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int w = lo + tid + r * kThreads;
+    win[tid + r * kThreads] = w <= n_seg ? __ldg(ptr + w) : INT_MAX;
+  }
+  if (tid == kThreads - 1) {
+    win[kWin] = lo + kWin <= n_seg ? __ldg(ptr + lo + kWin) : INT_MAX;
+  }
+  const int k_lo =
+      lo + __syncthreads_count(lo + tid < hi && win[tid] < t0);
+  // mark the first entry of each non-empty segment starting in the tile;
+  // an empty one is written +0.0 here, by the tile holding its offset
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = tid + r * kThreads;
+    const int k = lo + i;
+    if (k >= k_lo && k < n_seg && win[i] < t0 + kTile) {
+      if (win[i + 1] > win[i]) {
+        mark_start(starts, seg_at, win[i] - t0, k);
+      } else {
+        out.store(k, 0.0f);
+      }
+    }
+  }
+  if (lo + kWin < n_seg && win[kWin] < t0 + kTile) {
+    // more segments start in the tile than the window holds
+    for (int k0 = lo + kWin;; k0 += kThreads) {
+      const int k = k0 + tid;
+      bool more = false;
+      if (k < n_seg) {
+        const int a = __ldg(ptr + k);
+        if (a < t0 + kTile) {
+          more = true;
+          if (__ldg(ptr + k + 1) > a) {
+            mark_start(starts, seg_at, a - t0, k);
+          } else {
+            out.store(k, 0.0f);
+          }
+        }
+      }
+      if (!__syncthreads_or(more && tid == kThreads - 1)) break;
+    }
+  }
+  __syncthreads();
+  const int k_first = k_lo - 1;    // holds t0 when position 0 is no start
+
+  float v[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    v[j] = e0 + j < t1 ? __ldg(vals + id[j]) : 0.0f;
+  }
+
+  // step 2: the segmented scan, in-thread then across the block.  The
+  // thread's 8 start bits, and the next thread's first, in one word pair.
+  const unsigned bits = static_cast<unsigned>(
+      (static_cast<unsigned long long>(starts[(tid >> 2) + 1]) << 32 |
+       starts[tid >> 2]) >> (8 * (tid & 3))) & 0x1ffu;
+  Part inc{0.0f, -1};
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    if (bits >> j & 1u) inc = Part{0.0f, i0 + j};
+    inc.v += v[j];
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Part o{__shfl_up_sync(0xffffffffu, inc.v, off),
+                 __shfl_up_sync(0xffffffffu, inc.pos, off)};
+    if (lane >= off) inc = combine(o, inc);
+  }
+  Part exc{__shfl_up_sync(0xffffffffu, inc.v, 1),
+           __shfl_up_sync(0xffffffffu, inc.pos, 1)};
+  if (lane == 0) exc = Part{0.0f, -1};
+  if (lane == 31) warp_total[warp] = inc;
+  __syncthreads();
+  Part pre{0.0f, -1};
+#pragma unroll 1
+  for (int u = 0; u < warp; ++u) pre = combine(pre, warp_total[u]);
+  exc = combine(pre, exc);
+
+  // step 3: each segment's sum within the tile, at its last entry here.
+  // A segment that began in an earlier tile ends at most once per tile
+  // (its head piece), and only the tile's last entry can leave a piece
+  // that may run on; both go to step 4 after the loop.
+  float acc = exc.v;
+  bool started = exc.pos >= 0;               // cur starts in this tile
+  int cur = started ? seg_at[exc.pos] : k_first;
+  int head_seg = -1, edge_seg = -1;
+  float head_acc = 0.0f, edge_acc = 0.0f;
+  bool edge_started = false;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int e = e0 + j;
+    if (e >= t1) break;
+    if (bits >> j & 1u) {
+      cur = seg_at[i0 + j];
+      acc = 0.0f;
+      started = true;
+    }
+    acc += v[j];
+    if (e + 1 < t1 && !(bits >> (j + 1) & 1u)) continue;  // cur goes on
+    if (e + 1 == t0 + kTile) {
+      edge_seg = cur;
+      edge_acc = acc;
+      edge_started = started;
+    } else if (started) {
+      out.store(cur, acc);                   // wholly in the tile
+    } else {
+      head_seg = cur;
+      head_acc = acc;
+    }
+  }
+  // ptr[k], from the window where it holds k
+  auto ptr_at = [&](int k) {
+    return k >= lo && k - lo <= kWin ? win[k - lo] : __ldg(ptr + k);
+  };
+  if (head_seg >= 0) {
+    segsum_piece(out, carry, head_sum, ticket, b, head_seg, head_acc,
+                 ptr_at(head_seg) / kTile, b);
+  }
+  if (edge_seg >= 0) {
+    const int end = ptr_at(edge_seg + 1);
+    if (edge_started && end == t0 + kTile) {
+      out.store(edge_seg, edge_acc);         // wholly in the tile
+    } else {
+      segsum_piece(out, carry, head_sum, ticket, b, edge_seg, edge_acc,
+                   edge_started ? b : ptr_at(edge_seg) / kTile,
+                   (end - 1) / kTile);
+    }
+  }
+}
+
+// K1 and K6: one block per tile.  scratch: 2 * n_tiles floats (carry,
+// head_sum); ticket: n_tiles zeroed counters, left zeroed.
+int launch_segsum(const float* vals, const int* gather, const int* ptr,
+                  Out out, float* scratch, unsigned* ticket, int n_seg,
+                  int n_entries, cudaStream_t stream) {
+  const int n_tiles = n_entries / kTile + 1;
+  segsum_tile_kernel<<<n_tiles, kThreads, 0, stream>>>(
+      vals, gather, ptr, out, n_seg, scratch, scratch + n_tiles, ticket);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -139,27 +379,31 @@ link_gathers_kernel(const int* __restrict__ idx,
 
 extern "C" {
 
+// Entries per tile of K1/K6; the wrappers size the scratch with it.
+int uno_segsum_tile(void) { return kTile; }
+
 // vals: (V,) f32; gather: (E,) int32 ids into vals, sorted by segment;
-// ptr: (n_seg + 2,) int32 CSR offsets; out: (n_seg + 1,) f32.
+// ptr: (n_seg + 2,) int32 CSR offsets, ptr[0] = 0, ptr[n_seg] <= E;
+// out: (n_seg + 1,) f32; scratch: (2 * n_tiles,) f32 and ticket:
+// (n_tiles,) zeroed int32 for n_tiles = E / tile + 1; ticket is left
+// zeroed, so one buffer serves every call on a stream.
 int uno_link_scatter(const float* vals, const int* gather, const int* ptr,
-                     float* out, int n_seg, cudaStream_t stream) {
-  const int64_t threads = (int64_t)(n_seg + 1) * 32;
-  const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  link_scatter_kernel<<<blocks, kThreads, 0, stream>>>(vals, gather, ptr,
-                                                       out, n_seg);
-  return (int)cudaGetLastError();
+                     float* out, float* scratch, unsigned* ticket,
+                     int n_seg, int n_entries, cudaStream_t stream) {
+  return launch_segsum(vals, gather, ptr, Out{out, out, n_seg + 1}, scratch,
+                       ticket, n_seg, n_entries, stream);
 }
 
 // K1's operands; priv: (n_seg - n_boundary,) f32; bnd: (n_boundary + 1,)
 // f32.  0 < n_boundary < n_seg (the wrapper checks).
 int uno_link_scatter_tiles(const float* vals, const int* gather,
                            const int* ptr, float* priv, float* bnd,
-                           int n_seg, int n_boundary, cudaStream_t stream) {
-  const int64_t threads = (int64_t)(n_seg + 1) * 32;
-  const int blocks = (int)((threads + kThreads - 1) / kThreads);
-  link_scatter_tiles_kernel<<<blocks, kThreads, 0, stream>>>(
-      vals, gather, ptr, priv, bnd, n_seg, n_seg - n_boundary);
-  return (int)cudaGetLastError();
+                           float* scratch, unsigned* ticket, int n_seg,
+                           int n_boundary, int n_entries,
+                           cudaStream_t stream) {
+  return launch_segsum(vals, gather, ptr,
+                       Out{priv, bnd, n_seg - n_boundary}, scratch, ticket,
+                       n_seg, n_entries, stream);
 }
 
 // idx: (n_rows, h) int32 in [0, L]; packed: (L + 1, 4) f32, 16-byte

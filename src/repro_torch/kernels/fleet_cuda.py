@@ -2,16 +2,23 @@
 exchange (``csrc/fleet_kernels.cu``), replacing the Pallas TPU kernels of
 ``repro.kernels.fleet_pallas``.
 
-  * `segment_sum` — K1, a deterministic warp-per-segment sum over a
-    by-segment-sorted CSR entry list.  `link_scatter` (row-1 contract:
-    flow -> link offered load), `path_rates` (PathTable stage 1) and
-    `path_table_scatter` (stages 1 + 2) are compositions of it.
-  * `segment_sum_tiles` — K6, the same segmented sum with its output cut
-    at `n_links - n_boundary` into a private tile and a boundary tile
-    (scratch slot last), the boundary tile written wherever the caller
-    points it (a row of a halo exchange's stacked buffer).
-    `link_scatter_tiles` (row-6 contract) and the tiled branch of
-    `path_table_scatter` (stage 2) run on it.
+  * `segment_sum` — K1, a deterministic segmented sum over a
+    by-segment-sorted CSR entry list, balanced by entries: each block owns
+    a tile of `ref.SEGSUM_TILE` consecutive entries whatever the segment
+    lengths and writes the segments lying inside it; a segment over
+    several tiles leaves a piece per tile, and the tile whose piece lands
+    last (an atomic ticket) adds them in tile order.  One device kernel
+    per call (see the note in ``fleet_kernels.cu``).  It replaces TPU
+    rows 1, 3 and 4: `link_scatter` (flow -> link offered load),
+    `path_rates` (PathTable stage 1) and `path_table_scatter` (stages
+    1 + 2) are compositions of it.  Bound by bytes: the gather ids are
+    streamed once, the values gathered from L2.
+  * `segment_sum_tiles` — K6 (TPU row 6), the same kernel with the
+    output cut at `n_links - n_boundary` into a private tile and a
+    boundary tile (scratch slot last), the boundary tile written wherever
+    the caller points it (a row of a halo exchange's stacked buffer).
+    `link_scatter_tiles` and the tiled branch of `path_table_scatter`
+    (stage 2) run on it.  Bitwise equal to K1 on the same CSR.
   * `row_gathers` — K2, one thread per row of an (R, h) index table:
     min / 1 - prod / sum of the packed per-link values over the row's
     hops.  `link_gathers` (flat, R = n*p rows of max_hops) and
@@ -20,8 +27,11 @@ exchange (``csrc/fleet_kernels.cu``), replacing the Pallas TPU kernels of
 
 Device rule: a wrapper given CPU tensors runs its kernel's plain version
 (`repro_torch.kernels.ref`); given CUDA tensors it launches the kernel or
-raises — there is no fallback.  Each launch adds one to
-``LAUNCHES["<kernel>/<use>"]``; nothing else touches the counts.
+raises — there is no fallback.  Each call that launches adds one to
+``LAUNCHES["<kernel>/<use>"]``; nothing else touches the counts.  The
+wrappers read no device value on the host (the K1/K6 grid comes from the
+tensors' shapes, the live entry count is read on the device), so a step
+built on them makes no host sync.
 """
 from __future__ import annotations
 
@@ -83,7 +93,33 @@ def _csr_operands(vals_ext, gather, ptr) -> int:
     _check(ptr, "ptr", torch.int32, 1)
     if ptr.shape[0] < 2:
         raise ValueError("ptr needs at least 2 offsets")
+    if gather.shape[0] > 2 ** 31 - 1 - 2 * ref.SEGSUM_TILE:
+        raise ValueError(f"gather: {gather.shape[0]} entries overflow int32")
     return ptr.shape[0] - 2
+
+
+_TICKETS: dict = {}     # (device, stream) -> K1/K6's zeroed ticket counters
+
+
+def _segsum_lib_and_scratch(gather: torch.Tensor):
+    """The fleet library, K1/K6's piece scratch (2 words per tile) and the
+    stream's ticket counters (1 per tile).  The kernel leaves the tickets
+    zeroed, so each stream keeps one buffer, grown when a CSR needs more
+    tiles; only that growth launches a memset."""
+    from repro_torch.kernels import build
+    lib = build.load("fleet")
+    if not _TICKETS and lib.uno_segsum_tile() != ref.SEGSUM_TILE:
+        raise RuntimeError(f"fleet_kernels.cu tiles {lib.uno_segsum_tile()} "
+                           f"entries, ref.SEGSUM_TILE {ref.SEGSUM_TILE}")
+    n_tiles = gather.shape[0] // ref.SEGSUM_TILE + 1
+    dev = gather.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _TICKETS.get((dev, stream))
+    if tickets is None or tickets.shape[0] < n_tiles:
+        tickets = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+        _TICKETS[(dev, stream)] = tickets
+    scratch = torch.empty(2 * n_tiles, dtype=torch.float32, device=dev)
+    return lib, scratch, tickets, stream
 
 
 def segment_sum(vals_ext: torch.Tensor, gather: torch.Tensor,
@@ -94,8 +130,9 @@ def segment_sum(vals_ext: torch.Tensor, gather: torch.Tensor,
     segments; the trailing scratch/sentinel slot out[K] is 0.0.
 
     vals_ext: (V,) f32; gather: (E,) int32 ids into vals_ext; ptr:
-    (K + 2,) int32 offsets.  `use` labels the launch count; `out`, if
-    given, receives the result.
+    (K + 2,) int32 offsets with ptr[0] = 0 and ptr[K] <= E; entries at
+    or past ptr[K] are never read.  `use` labels the launch count; `out`,
+    if given, receives the result.
     """
     n_seg = _csr_operands(vals_ext, gather, ptr)
     _check_out(out, "out", n_seg + 1)
@@ -103,14 +140,14 @@ def segment_sum(vals_ext: torch.Tensor, gather: torch.Tensor,
     if not _on_cuda(vals_ext, gather, ptr, *extra):
         got = ref.csr_segment_sum_ref(vals_ext, gather, ptr)
         return got if out is None else out.copy_(got)
-    from repro_torch.kernels import build
-    lib = build.load("fleet")
+    lib, scratch, tickets, stream = _segsum_lib_and_scratch(gather)
     if out is None:
         out = torch.empty(n_seg + 1, dtype=torch.float32,
                           device=vals_ext.device)
     err = lib.uno_link_scatter(vals_ext.data_ptr(), gather.data_ptr(),
-                               ptr.data_ptr(), out.data_ptr(), n_seg,
-                               torch.cuda.current_stream().cuda_stream)
+                               ptr.data_ptr(), out.data_ptr(),
+                               scratch.data_ptr(), tickets.data_ptr(), n_seg,
+                               gather.shape[0], stream)
     _raise_on(err, "uno_link_scatter")
     LAUNCHES["link_scatter/" + use] += 1
     return out
@@ -124,8 +161,8 @@ def segment_sum_tiles(vals_ext: torch.Tensor, gather: torch.Tensor,
     K - n_boundary: private (K - n_boundary,) holds segments below the
     cut, boundary (n_boundary + 1,) the rest with the scratch/sentinel
     slot last, 0.0.  On real segments the two tiles concatenated equal
-    `segment_sum` bitwise (same warp order, same sums).  `bnd_out`, if
-    given, receives the boundary tile.  Raises outside
+    `segment_sum` bitwise (the same kernel; only the stores differ).
+    `bnd_out`, if given, receives the boundary tile.  Raises outside
     0 < n_boundary < K, as `fleet_pallas.link_scatter_tiles` does."""
     n_seg = _csr_operands(vals_ext, gather, ptr)
     if not 0 < n_boundary < n_seg:
@@ -136,16 +173,15 @@ def segment_sum_tiles(vals_ext: torch.Tensor, gather: torch.Tensor,
         priv, bnd = ref.csr_segment_sum_tiles_ref(vals_ext, gather, ptr,
                                                   n_boundary)
         return priv, (bnd if bnd_out is None else bnd_out.copy_(bnd))
-    from repro_torch.kernels import build
-    lib = build.load("fleet")
+    lib, scratch, tickets, stream = _segsum_lib_and_scratch(gather)
     dev = vals_ext.device
     priv = torch.empty(n_seg - n_boundary, dtype=torch.float32, device=dev)
     bnd = bnd_out if bnd_out is not None else \
         torch.empty(n_boundary + 1, dtype=torch.float32, device=dev)
     err = lib.uno_link_scatter_tiles(
         vals_ext.data_ptr(), gather.data_ptr(), ptr.data_ptr(),
-        priv.data_ptr(), bnd.data_ptr(), n_seg, n_boundary,
-        torch.cuda.current_stream().cuda_stream)
+        priv.data_ptr(), bnd.data_ptr(), scratch.data_ptr(),
+        tickets.data_ptr(), n_seg, n_boundary, gather.shape[0], stream)
     _raise_on(err, "uno_link_scatter_tiles")
     LAUNCHES["link_scatter_tiles/" + use] += 1
     return priv, bnd

@@ -9,8 +9,10 @@ Fleet flow<->link kernels, in two families:
     `fleet_pt_offered_load_ref` / `fleet_pt_gathers_ref`;
   * the exact functions the CUDA kernels compute, on the kernels' own
     operands: `csr_segment_sum_ref` (K1, a segmented sum over a sorted CSR
-    entry list), `csr_segment_sum_tiles_ref` (K6, the same cut into
-    private and boundary tiles) and `row_gathers_ref` (K2, min / 1-prod /
+    entry list), `csr_segment_sum_tiled_ref` (the same sum as the kernel
+    decomposes it into tiles of entries, carries and head pieces),
+    `csr_segment_sum_tiles_ref` (K6, the sum cut into private and
+    boundary tiles) and `row_gathers_ref` (K2, min / 1-prod /
     sum over the hops of each row of an index table, reduced hop by hop in
     the same order as the kernel so the results are bitwise comparable).
 
@@ -141,6 +143,62 @@ def csr_segment_sum_tiles_ref(vals_ext, gather, ptr, n_boundary: int):
     out = csr_segment_sum_ref(vals_ext, gather, ptr)
     cut = ptr.shape[0] - 2 - n_boundary
     return out[:cut], out[cut:]
+
+
+SEGSUM_TILE = 2048      # entries per block of K1/K6 (fleet_kernels.cu kTile)
+
+
+def csr_segment_sum_tiled_ref(vals_ext, gather, ptr,
+                              tile: int = SEGSUM_TILE):
+    """K1's function computed as the kernel decomposes it: the entries cut
+    into tiles of `tile` (the grid covers [0, len(gather)]), and
+
+      * a segment wholly inside one tile is that tile's piece of it, an
+        empty segment +0.0 (owned by the tile holding its start offset);
+      * a tile whose last segment runs past its end leaves that piece as
+        its carry, a tile where a segment that began earlier ends leaves
+        the piece as its head (with the segment's id);
+      * the fix-up sums each spanning segment's pieces in tile order: the
+        carries from its first tile to the one before its last, then the
+        head.
+
+    Entries at or past ptr[K] are never read; out[K] is 0.0.  The sum
+    order inside a piece is not the kernel's (a fixed-order scan there),
+    so on integer-valued inputs, where every order is exact, the two agree
+    bitwise.  Returns (K + 1,) like `csr_segment_sum_ref`."""
+    k = ptr.shape[0] - 2
+    dev = vals_ext.device
+    p = ptr.long()
+    live = int(p[k])        # host read: the plain version is no graph path
+    n_tiles = gather.shape[0] // tile + 1
+    seg = torch.repeat_interleave(torch.arange(k, device=dev),
+                                  p[1:k + 1] - p[:k], output_size=live)
+    tid = torch.arange(live, device=dev) // tile
+    # a piece opens at a segment's first entry or at a tile's first entry
+    opens = torch.ones(live, dtype=torch.bool, device=dev)
+    opens[1:] = (seg[1:] != seg[:-1]) | (tid[1:] != tid[:-1])
+    piece = torch.cumsum(opens, 0) - 1
+    n_pieces = int(opens.sum())
+    sums = torch.zeros(n_pieces, dtype=vals_ext.dtype, device=dev)
+    sums.index_add_(0, piece, vals_ext[gather[:live].long()])
+    pseg, ptile = seg[opens], tid[opens]
+    starts_here = p[pseg] >= ptile * tile
+    ends_here = p[pseg + 1] <= (ptile + 1) * tile
+    out = torch.zeros(k + 1, dtype=vals_ext.dtype, device=dev)
+    own = starts_here & ends_here
+    out[pseg[own]] = sums[own]
+    carry = torch.zeros(n_tiles, dtype=vals_ext.dtype, device=dev)
+    carry[ptile[~ends_here]] = sums[~ends_here]
+    head = ends_here & ~starts_here
+    hseg, htile = pseg[head], ptile[head]
+    first = p[hseg] // tile
+    total = carry[first]
+    for j in range(1, int((htile - first).max()) if hseg.numel() else 0):
+        more = first + j < htile
+        total = torch.where(more, total + carry[(first + j).clamp(
+            max=n_tiles - 1)], total)
+    out[hseg] = total + sums[head]
+    return out
 
 
 def pack_link_values(scale, clean, delay):
