@@ -14,15 +14,18 @@ Phases, each printing one JSON line:
                it (the full-size k=8 fat-tree layout and the multipath
                n_wan=4 dumbbell layout, random rates and link values):
                per-link relative error <= 1e-6 for the scatter (against
-               the plain version evaluated in float64), exact min and
-               rtol 1e-6 product / sum for the gathers, two runs bitwise
-               equal, median CUDA-event time over 25 launches; each
-               scatter also bitwise equal to its tiled plain version
-               (`csr_segment_sum_tiled_ref`) on integer-valued inputs,
-               called once under `torch.cuda.set_sync_debug_mode("error")`
-               (no host sync), its device kernels and device time per
-               call read from the profiler; a scatter's time is the
-               wrapper call's (K6's tile pair, not concatenated);
+               the plain version evaluated in float64); for the gathers
+               (flat K2, and the PathTable function `path_table_gathers`
+               in full) exact min and rtol 1e-6 product / sum against the
+               plain version and the float64 oracles, bitwise equality
+               with the plain version recorded; two runs bitwise equal,
+               median CUDA-event time over 25 launches, device kernels
+               and device time per call from the profiler, one call under
+               `torch.cuda.set_sync_debug_mode("error")` (no host sync);
+               each scatter also bitwise equal to its tiled plain version
+               (`csr_segment_sum_tiled_ref`) on integer-valued inputs;
+               a scatter's time is the wrapper call's (K6's tile pair,
+               not concatenated);
   4. main    — the two-DC k=8 fat tree, 100k flows, 8 ECMP paths,
                permutation mix, compiled by the port and run through
                `steady_state(scheme="uno")` on the `pt_cuda` kernels, then
@@ -51,8 +54,12 @@ Phases, each printing one JSON line:
                decode (rows {0, 1} from the survivors), K4 quant (zero
                blocks included), K5 dequant and its fused add, all
                bitwise, two runs bitwise equal, median CUDA-event time
-               over 25 launches; and all 55 erasure patterns of at most
-               two of the ten RS(8, 2) rows recovered bitwise;
+               over 25 launches; K5 beside `torch.mul` (plain use) and
+               `torch.addcmul` (fused use), each a library time only if
+               bitwise equal to K5; both K5 uses again at 1, 2, 3, 5 and
+               4,099 blocks (the tail of its 4-block warp span), strided
+               addend rows; and all 55 erasure patterns of at most two of
+               the ten RS(8, 2) rows recovered bitwise;
   8. unorc_sync — `make_uno_grad_sync` over smollm-135m's whole
                134,515,008-parameter bf16 gradient at p = 2 (pairwise)
                and p = 4 (ring), on the kernels and on the plain backend:
@@ -142,8 +149,9 @@ def nvidia_smi() -> str:
 
 def time_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     """Median device time of `fn()` over n calls, one CUDA-event pair per
-    call.  A sleep kernel queued first keeps the card busy while the host
-    enqueues the pair, so the host's launch overhead stays out of it."""
+    call.  A sleep kernel queued first (a million cycles, ~0.5 ms) keeps
+    the card busy while the host enqueues the pair, so the host's launch
+    overhead stays out of it."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -151,7 +159,7 @@ def time_ms(fn, n: int = TIMED_LAUNCHES) -> float:
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -221,7 +229,6 @@ def kernel_phase(net, dev, flat_path=None, pt_path=None, tag="", halo=None):
     scale = 0.05 + 0.95 * torch.rand(nl, device=dev, generator=g)
     clean = 1.0 - 0.05 * torch.rand(nl, device=dev, generator=g)
     delay = 1_000.0 * torch.rand(nl, device=dev, generator=g)
-    packed = ref.pack_link_values(scale, clean, delay)
     records = []
 
     def scatter_record(use, path, replaces, gather, ptr, v_ext, truth,
@@ -347,53 +354,79 @@ def kernel_phase(net, dev, flat_path=None, pt_path=None, tag="", halo=None):
     for b, err in rel.items():
         check(err <= SCATTER_TOL, f"{b} offered load{tag}: {err}")
 
-    def gather_record(use, path, replaces, idx):
-        name = "link_gathers/" + use + tag
-        def kernel():
-            return K.row_gathers(idx, packed, use=use)
+    vals = (scale, clean, delay)
+    vals64 = tuple(v.double() for v in vals)
+    flat_oracle = ref.fleet_link_gathers_ref(routes, *vals)
+    flat_oracle64 = ref.fleet_link_gathers_ref(routes, *vals64)
 
+    def gather_errs(name, got, want):
+        """(product, sum) relative errors of K2's outputs against `want`
+        (float32 or float64); the min must be exact."""
+        check(torch.equal(got[0].double(), want[0].double()),
+              f"{name}: min not exact")
+        keep = 1 - want[1].double()
+        prod = float(torch.max(torch.abs((1 - got[1].double()) - keep)
+                               / keep.abs()))
+        tot = float(torch.max(torch.abs(got[2].double() - want[2].double())
+                              / want[2].double().abs().clamp(min=1e-30)))
+        check(prod <= GATHER_RTOL and tot <= GATHER_RTOL,
+              f"{name}: product {prod} / sum {tot}")
+        return prod, tot
+
+    def gather_record(counter, path, replaces, kernel, plain_fn, oracles64,
+                      n_bytes, **shape):
+        name = counter + tag
         o1, o2 = kernel(), kernel()
         torch.cuda.synchronize()
-        plain = ref.row_gathers_ref(idx, packed)
-        got = tuple(x.reshape(-1) for x in o1)
-        check(torch.equal(got[0], plain[0]), f"{name}: min not exact")
-        prod_err = float(torch.max(torch.abs((1 - got[1]) - (1 - plain[1]))
-                                   / (1 - plain[1]).abs()))
-        sum_err = float(torch.max(torch.abs(got[2] - plain[2])
-                                  / plain[2].abs().clamp(min=1e-30)))
-        check(prod_err <= GATHER_RTOL and sum_err <= GATHER_RTOL,
-              f"{name}: product {prod_err} / sum {sum_err}")
-        r, hh = idx.shape
-        n_bytes = 4 * r * hh + 16 * packed.shape[0] + 12 * r
+        plain = plain_fn()
+        prod_err, sum_err = gather_errs(name, o1, plain)
+        errs64 = [gather_errs(f"{name} vs float64 oracle", o1, o)
+                  for o in oracles64]
+        # the wrapper makes no host sync
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            kernel()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         records.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/fleet_kernels.cu",
-            replaces=replaces, launches=0, path=path,
-            counter="link_gathers/" + use,
-            max_abs_err=max(float(torch.max(torch.abs(a.reshape(-1) - b)))
+            replaces=replaces, launches=0, path=path, counter=counter,
+            max_abs_err=max(float(torch.max(torch.abs(a - b)))
                             for a, b in zip(o1, plain)),
             prod_rel_err=prod_err, sum_rel_err=sum_err,
+            prod_rel_err_f64=max(e[0] for e in errs64),
+            sum_rel_err_f64=max(e[1] for e in errs64),
+            bitwise_equal_plain=all(torch.equal(a, b)
+                                    for a, b in zip(o1, plain)),
             bitwise_repeat=all(torch.equal(a, b) for a, b in zip(o1, o2)),
-            ms=time_ms(kernel),
-            plain_ms=time_ms(lambda: ref.row_gathers_ref(idx, packed)),
+            no_host_sync=True, ms=time_ms(kernel), plain_ms=time_ms(plain_fn),
             bound_ms=bound_ms(n_bytes), bound_by="bytes", library_ms=None,
-            bytes=n_bytes, rows=r, hops=hh))
+            bytes=n_bytes, **call_profile(kernel), **shape))
         check(records[-1]["bitwise_repeat"], f"{name}: runs differ")
 
-    flat_oracle = ref.fleet_link_gathers_ref(routes, scale, clean, delay)
-    composed = [("cuda", K.link_gathers(lay.pad_idx, scale, clean, delay),
-                 [flat_oracle])]
     if flat_path is not None:
-        gather_record("flat", flat_path,
-                      "src/repro/kernels/fleet_pallas.py:205",
-                      lay.pad_idx.reshape(n * p, h))
+        gather_record(
+            "link_gathers/flat", flat_path,
+            "src/repro/kernels/fleet_pallas.py:205",
+            lambda: K.link_gathers(lay.pad_idx, *vals),
+            lambda: ref.link_gathers_ref(lay.pad_idx, *vals), [flat_oracle64],
+            4 * n * p * h + 12 * nl + 12 * n * p, rows=n * p, hops=h)
+    composed = [("cuda", K.link_gathers(lay.pad_idx, *vals), [flat_oracle])]
     if pt_path is not None:
-        gather_record("pt_segments", pt_path,
-                      "src/repro/kernels/fleet_pallas.py:278", pt.seg_idx)
+        u, hseg = pt.seg_idx.shape
+        pt_ids = (pt.pre_id, pt.suf_id, pt.seg_idx)
+        gather_record(
+            "pt_gathers", pt_path, "src/repro/kernels/fleet_pallas.py:278",
+            lambda: K.path_table_gathers(pt, *vals),
+            lambda: ref.pt_gathers_ref(*pt_ids, *vals),
+            [ref.fleet_pt_gathers_ref(*pt_ids, *vals64), flat_oracle64],
+            4 * u * hseg + 12 * nl + 8 * n * p + 12 * n * p,
+            subflows=n * p, segments=u, hops=hseg)
         composed.append((
-            "pt_cuda", K.path_table_gathers(pt, scale, clean, delay),
-            [ref.fleet_pt_gathers_ref(pt.pre_id, pt.suf_id, pt.seg_idx,
-                                      scale, clean, delay), flat_oracle]))
+            "pt_cuda", K.path_table_gathers(pt, *vals),
+            [ref.fleet_pt_gathers_ref(*pt_ids, *vals), flat_oracle]))
     # the per-subflow results of each backend against its oracles
     for b, outs, oracles in composed:
         for want3 in oracles:
@@ -800,7 +833,11 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
     x[1, :256] = 0.0
     records = []
 
-    def record(counter, path, replaces, kernel, plain, n_bytes, n_ops=0):
+    def record(counter, path, replaces, kernel, plain, n_bytes, n_ops=0,
+               library=None):
+        """`library`: one PyTorch call that may compute the same
+        function, timed; its time is `library_ms` only if it is bitwise
+        equal to the kernel."""
         o1, o2 = kernel(), kernel()
         torch.cuda.synchronize()
         want = plain()
@@ -812,6 +849,11 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
         check(all(torch.equal(a, b) for a, b in zip(o1, o2)),
               f"{name}: runs differ")
         bound = bound_ms(n_bytes, n_ops)
+        extra = {}
+        if library is not None:
+            extra = dict(library_call_ms=time_ms(library),
+                         library_bitwise_equal=torch.equal(
+                             library().reshape(o1[0].shape), o1[0]))
         records.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/unorc_kernels.cu",
@@ -821,8 +863,11 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
             bitwise_equal=True, bitwise_repeat=True,
             ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=bound,
             bound_by="bytes" if bound == bound_ms(n_bytes) else
-            "operations", library_ms=None, bytes=n_bytes, ops=n_ops,
-            shape=[int(v) for v in o1[0].shape]))
+            "operations",
+            library_ms=extra.get("library_call_ms")
+            if extra.get("library_bitwise_equal") else None,
+            bytes=n_bytes, ops=n_ops,
+            shape=[int(v) for v in o1[0].shape], **extra))
         return o1 if len(o1) > 1 else o1[0]
 
     nb = c // 256
@@ -848,14 +893,29 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
                      lambda: ref.gf_matmul_ref(dec, surv),
                      n_pods * (nx + ny) * width)
     check(torch.equal(rebuilt, rows[:, :ny]), "decode: rows {0, 1} lost")
+    qb, sb = q.view(n_pods, nb, 256), s[..., None]
     record("dequant_int8", uno_path(4), "src/repro/kernels/quant_pallas.py:59",
            lambda: K.dequant_int8(q, s), lambda: ref.dequant_int8_ref(q, s),
-           n_pods * (c + 4 * nb + 4 * c), n_pods * c)
+           n_pods * (c + 4 * nb + 4 * c), n_pods * c,
+           library=lambda: torch.mul(qb, sb))
+    xb = x.view(n_pods, nb, 256)
     record("dequant_int8/acc", uno_path(2),
            "src/repro/kernels/quant_pallas.py:59",
            lambda: K.dequant_int8(q, s, x),
            lambda: ref.dequant_int8_ref(q, s, acc=x),
-           n_pods * (c + 4 * nb + 8 * c), 2 * n_pods * c)
+           n_pods * (c + 4 * nb + 8 * c), 2 * n_pods * c,
+           library=lambda: torch.addcmul(xb, qb, sb))
+    # both uses at block counts on either side of K5's per-warp span of
+    # 4 blocks (the tail), with the addend's rows strided
+    for n_blocks in (b for b in (1, 2, 3, 5, 4099) if 256 * (b + 1) <= c):
+        tq, ts = K.quant_int8(x[:, :256 * n_blocks])
+        wide = x[:, 256:256 * (n_blocks + 2)]
+        tacc = wide[:, :256 * n_blocks]
+        check(torch.equal(K.dequant_int8(tq, ts),
+                          ref.dequant_int8_ref(tq, ts)) and
+              torch.equal(K.dequant_int8(tq, ts, tacc),
+                          ref.dequant_int8_ref(tq, ts, acc=tacc)),
+              f"dequant_int8: tail of {n_blocks} blocks differs")
     # every pattern of one or two lost rows among the nx + ny, one width
     data = rows[0].contiguous()
     n_patterns = 0

@@ -4,8 +4,10 @@
 //
 //   K1 uno_link_scatter       <- link_scatter (_scatter_kernel), and through
 //                                it path_rates / path_table_scatter;
-//   K2 uno_link_gathers       <- link_gathers (_gathers_kernel), and through
-//                                it path_table_gathers;
+//   K2 uno_link_gathers       <- link_gathers (_gathers_kernel);
+//      uno_pt_gathers         <- path_table_gathers, the whole function:
+//                                the per-segment gathers and the
+//                                per-subflow prefix/suffix composition;
 //   K6 uno_link_scatter_tiles <- link_scatter_tiles (_scatter_tiles_kernel),
 //                                and through it the tiled (n_boundary=)
 //                                branch of path_table_scatter.
@@ -72,12 +74,43 @@
 // be any row of the sharded run's stacked exchange buffer.  Both run the
 // same kernel, so K6 equals K1 bitwise.
 //
-// K2 runs one thread per row of an (R, h) index table: it loops over the
-// row's h hops, reads the packed per-link float4 (scale, clean, delay, 0)
-// — the identity row (1, 1, 0, 0) sits at the scratch slot L — and writes
-// min over hops of scale, 1 - prod over hops of clean and sum over hops of
-// delay, hop 0 first.  Bound: bytes (the index table dominates).
+// K2 reduces each row of a hop table over three per-link vectors: min
+// of scale, product of clean, sum of delay, hop 0 first; hop id L (the
+// scratch slot of -1 hops) reads the identity (1, 1, 0).  The operands are
+// the three (L,) vectors themselves, so no packed table is built per call.
+// One thread per row; the hop count is a template parameter for h <= 16,
+// so a thread issues all its row's id loads before the first gather (a
+// runtime loop serves larger h).  Bound: bytes, the hop ids streamed once
+// and the outputs written once.  The per-link gathers stay on chip: the
+// vectors of the fat tree (1,616 links, 19 KB) sit in each SM's L1 after
+// first touch, and the dumbbell's (51,563 links, 619 KB) in L2.  Staging
+// them in shared memory per block was tried and lost at every use (it
+// adds a serial load-and-barrier step and saves no memory traffic);
+// PERF.md has the times.
 //
+// uno_link_gathers (TPU row 2) is that reduction over the flat (n*p, h)
+// pad_idx table.  uno_pt_gathers (TPU row 5) computes path_table_gathers
+// in full from pre_id, suf_id (n, p) and seg_idx (U, hseg):
+//   sub_scale = min(seg_scale[pre], seg_scale[suf]),
+//   sub_frac  = 1 - seg_clean[pre] * seg_clean[suf],
+//   sub_delay = seg_delay[pre] + seg_delay[suf],
+// where seg_clean is the segment's product of clean.  The reference
+// rounds it through 1 - (1 - prod) before the multiply; the kernel
+// multiplies the products directly (as the reference's plain oracle
+// does), which is within its 1e-6 bar and one rounding closer.  Every
+// multiply and add is __fmul_rn / __fadd_rn / __fsub_rn, so nothing is
+// contracted into an FMA and the plain versions (ref.link_gathers_ref,
+// ref.pt_gathers_ref) replay the kernels' arithmetic exactly; the min is
+// fminf (it differs from torch.minimum only on NaN).  It runs as two
+// launches on the caller's stream: one thread per segment writes a (U,)
+// float4 {min, prod, sum, 0} table to scratch the wrapper allocates, then
+// one thread per subflow gathers its two segments' float4 and composes
+// them.  The second pass sets the time: 2 S random 16-byte gathers from
+// the 0.93 MB segment table run at the L2's sector rate.  One launch in
+// which each subflow reduces its own two segments' hops was tried and was
+// twice as slow on the main path (2 x hseg id loads and gathers per
+// subflow in place of two float4 gathers).
+
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // caller's stream and returns cudaGetLastError() right after the launch.
 
@@ -351,28 +384,136 @@ int launch_segsum(const float* vals, const int* gather, const int* ptr,
   return (int)cudaGetLastError();
 }
 
-__global__ void __launch_bounds__(kThreads)
-link_gathers_kernel(const int* __restrict__ idx,
-                    const float4* __restrict__ packed,
-                    float* __restrict__ scale_out,
-                    float* __restrict__ frac_out,
-                    float* __restrict__ delay_out, int n_rows, int h) {
-  const int64_t r = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  const int* row = idx + r * h;
-  float4 v = __ldg(packed + __ldg(row));
-  float mn = v.x;
-  float prod = 1.0f * v.y;
-  float tot = 0.0f + v.z;
-  for (int j = 1; j < h; ++j) {
-    v = __ldg(packed + __ldg(row + j));
-    mn = fminf(mn, v.x);
-    prod = prod * v.y;
-    tot = tot + v.z;
+constexpr int kGatherThreads = 256;
+
+// The three per-link vectors; hop id n_links is the scratch slot.
+struct LinkVals {
+  const float* scale;
+  const float* clean;
+  const float* delay;
+  int n_links;
+};
+
+// A row's reduction: min of scale, product of clean, sum of delay.
+struct Reduced {
+  float mn, prod, tot;
+};
+
+// Hop l's (scale, clean, delay), the identity (1, 1, 0) at l = n_links.
+__device__ __forceinline__ Reduced link_value(const LinkVals& lv, int l) {
+  if (l >= lv.n_links) return Reduced{1.0f, 1.0f, 0.0f};
+  return Reduced{__ldg(lv.scale + l), __ldg(lv.clean + l),
+                 __ldg(lv.delay + l)};
+}
+
+__device__ __forceinline__ void fold(Reduced& r, const Reduced& v) {
+  r.mn = fminf(r.mn, v.mn);
+  r.prod = __fmul_rn(r.prod, v.prod);
+  r.tot = __fadd_rn(r.tot, v.tot);
+}
+
+// One row of hop ids, hop 0 first.  H > 0: the row has H hops, all ids
+// loaded before the first gather; H == 0: h hops, one at a time.
+template <int H>
+__device__ __forceinline__ Reduced reduce_row(const int* __restrict__ row,
+                                              int h, const LinkVals& lv) {
+  if constexpr (H > 0) {
+    int id[H];
+#pragma unroll
+    for (int j = 0; j < H; ++j) id[j] = __ldg(row + j);
+    Reduced r = link_value(lv, id[0]);
+#pragma unroll
+    for (int j = 1; j < H; ++j) fold(r, link_value(lv, id[j]));
+    return r;
+  } else {
+    Reduced r = link_value(lv, __ldg(row));
+    for (int j = 1; j < h; ++j) fold(r, link_value(lv, __ldg(row + j)));
+    return r;
   }
-  scale_out[r] = mn;
-  frac_out[r] = 1.0f - prod;
-  delay_out[r] = tot;
+}
+
+__device__ __forceinline__ int64_t this_row() {
+  return blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+}
+
+// K2 flat: out = [min (n_rows,) | 1 - prod (n_rows,) | sum (n_rows,)].
+template <int H>
+__global__ void __launch_bounds__(kGatherThreads)
+link_gathers_kernel(const int* __restrict__ idx, LinkVals lv,
+                    float* __restrict__ out, int64_t n_rows, int h) {
+  const int64_t r = this_row();
+  if (r >= n_rows) return;
+  const Reduced g = reduce_row<H>(idx + r * (H > 0 ? H : h), h, lv);
+  out[r] = g.mn;
+  out[n_rows + r] = __fsub_rn(1.0f, g.prod);
+  out[2 * n_rows + r] = g.tot;
+}
+
+// uno_pt_gathers, pass 1: seg[u] = {min, prod, sum, 0} of segment u.
+template <int H>
+__global__ void __launch_bounds__(kGatherThreads)
+pt_segments_kernel(const int* __restrict__ seg_idx, LinkVals lv,
+                   float4* __restrict__ seg, int64_t n_seg, int hseg) {
+  const int64_t u = this_row();
+  if (u >= n_seg) return;
+  const Reduced g = reduce_row<H>(seg_idx + u * (H > 0 ? H : hseg), hseg, lv);
+  seg[u] = make_float4(g.mn, g.prod, g.tot, 0.0f);
+}
+
+// uno_pt_gathers, pass 2: each subflow's two segments composed.
+__global__ void __launch_bounds__(kGatherThreads)
+pt_compose_kernel(const int* __restrict__ pre_id,
+                  const int* __restrict__ suf_id,
+                  const float4* __restrict__ seg, float* __restrict__ out,
+                  int64_t n_sub) {
+  const int64_t i = this_row();
+  if (i >= n_sub) return;
+  const float4 a = __ldg(seg + __ldg(pre_id + i));
+  const float4 b = __ldg(seg + __ldg(suf_id + i));
+  out[i] = fminf(a.x, b.x);
+  out[n_sub + i] = __fsub_rn(1.0f, __fmul_rn(a.y, b.y));
+  out[2 * n_sub + i] = __fadd_rn(a.z, b.z);
+}
+
+int blocks_for_rows(int64_t n_rows) {
+  return (int)((n_rows + kGatherThreads - 1) / kGatherThreads);
+}
+
+template <int H>
+struct FlatGathers {
+  static void launch(const int* idx, LinkVals lv, float* out, int64_t n_rows,
+                     int h, cudaStream_t stream) {
+    link_gathers_kernel<H><<<blocks_for_rows(n_rows), kGatherThreads, 0,
+                             stream>>>(idx, lv, out, n_rows, h);
+  }
+};
+
+template <int H>
+struct PtSegments {
+  static void launch(const int* seg_idx, LinkVals lv, float4* seg,
+                     int64_t n_seg, int hseg, cudaStream_t stream) {
+    pt_segments_kernel<H><<<blocks_for_rows(n_seg), kGatherThreads, 0,
+                            stream>>>(seg_idx, lv, seg, n_seg, hseg);
+  }
+};
+
+// Launch<H>::launch(args...) for the hop count h: H = h up to 16, else
+// the runtime loop (H = 0).
+template <template <int> class Launch, class... Args>
+void launch_by_hops(int h, Args... args) {
+  switch (h) {
+#define UNO_HOPS_CASE(N)        \
+  case N:                       \
+    Launch<N>::launch(args...); \
+    return;
+    UNO_HOPS_CASE(1) UNO_HOPS_CASE(2) UNO_HOPS_CASE(3) UNO_HOPS_CASE(4)
+    UNO_HOPS_CASE(5) UNO_HOPS_CASE(6) UNO_HOPS_CASE(7) UNO_HOPS_CASE(8)
+    UNO_HOPS_CASE(9) UNO_HOPS_CASE(10) UNO_HOPS_CASE(11) UNO_HOPS_CASE(12)
+    UNO_HOPS_CASE(13) UNO_HOPS_CASE(14) UNO_HOPS_CASE(15) UNO_HOPS_CASE(16)
+#undef UNO_HOPS_CASE
+    default:
+      Launch<0>::launch(args...);
+  }
 }
 
 }  // namespace
@@ -406,15 +547,34 @@ int uno_link_scatter_tiles(const float* vals, const int* gather,
                        n_seg, n_entries, stream);
 }
 
-// idx: (n_rows, h) int32 in [0, L]; packed: (L + 1, 4) f32, 16-byte
-// aligned; outputs: (n_rows,) f32 each.  n_rows must be positive.
-int uno_link_gathers(const int* idx, const float* packed, float* scale_out,
-                     float* frac_out, float* delay_out, int n_rows, int h,
-                     cudaStream_t stream) {
-  const int blocks = (n_rows + kThreads - 1) / kThreads;
-  link_gathers_kernel<<<blocks, kThreads, 0, stream>>>(
-      idx, reinterpret_cast<const float4*>(packed), scale_out, frac_out,
-      delay_out, n_rows, h);
+// K2 flat.  idx: (n_rows, h) int32 in [0, n_links]; scale, clean, delay:
+// (n_links,) f32; out: (3, n_rows) f32 [min scale | 1 - prod clean | sum
+// delay].  n_rows > 0, h > 0 (the wrapper checks).
+int uno_link_gathers(const int* idx, const float* scale, const float* clean,
+                     const float* delay, int n_links, float* out,
+                     long long n_rows, int h, cudaStream_t stream) {
+  launch_by_hops<FlatGathers>(h, idx, LinkVals{scale, clean, delay, n_links},
+                              out, (int64_t)n_rows, h, stream);
+  return (int)cudaGetLastError();
+}
+
+// K2 over the PathTable, path_table_gathers in full.  pre_id, suf_id:
+// (n_sub,) int32 in [0, n_seg); seg_idx: (n_seg, hseg) int32 in [0,
+// n_links]; scale, clean, delay as above; seg: (n_seg, 4) f32 scratch,
+// 16-byte aligned; out: (3, n_sub) f32 [sub_scale | sub_frac | sub_delay].
+// n_sub > 0, n_seg > 0, hseg > 0.  Two launches: segments, then subflows.
+int uno_pt_gathers(const int* pre_id, const int* suf_id, const int* seg_idx,
+                   const float* scale, const float* clean, const float* delay,
+                   int n_links, float* seg, float* out, long long n_sub,
+                   long long n_seg, int hseg, cudaStream_t stream) {
+  float4* seg4 = reinterpret_cast<float4*>(seg);
+  launch_by_hops<PtSegments>(hseg, seg_idx,
+                             LinkVals{scale, clean, delay, n_links}, seg4,
+                             (int64_t)n_seg, hseg, stream);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  pt_compose_kernel<<<blocks_for_rows(n_sub), kGatherThreads, 0, stream>>>(
+      pre_id, suf_id, seg4, out, (int64_t)n_sub);
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,8 @@
 //   K5 uno_dequant_int8 <- repro/kernels/quant_pallas.py dequant_int8.
 //
 // All three are bound by bytes: they touch each byte once and do a few
-// integer or float operations on it.  The designs keep every load and
-// store 16 bytes wide and coalesced, and compute in registers.
+// integer or float operations on it.  The designs keep every warp's
+// loads and stores on contiguous runs of memory, and compute in registers.
 //
 // K3: a static (M, K) coefficient matrix (the encode rows, or a decode
 // matrix solved on the host) times a batch of (K, B) byte matrices.  One
@@ -37,13 +37,21 @@
 // block.  q = clamp(rint(x / scale), -127, 127) with an IEEE division
 // (__fdiv_rn) and round-half-even.  Rows of the input may be strided.
 //
-// K5: one thread per 16 int8 values (one 16-byte load, four float4
-// stores): out = float(q) * scale[i / 256], one rounded product each.
-// With an addend it is the receiver's dequantize-and-add, fused:
-// out = fma(float(q), scale, acc) with one rounding, which is what XLA
-// makes of the reference's `c + dequant(...)` (it contracts the multiply
-// and the add), and it saves writing and re-reading the product.
-//
+// K5: out = float(q) * scale[i / 256], one rounded product each.  With
+// an addend it is the receiver's dequantize-and-add, fused: out =
+// fma(float(q), scale, acc) with one rounding, which is what XLA makes of
+// the reference's `c + dequant(...)` (it contracts the multiply and the
+// add), and it saves writing and re-reading the product.  The output is
+// four bytes for every byte of q, so the stores set the time: each warp
+// owns a span of kDqRuns runs of 32 float4 (1,024 values, four quant
+// blocks), and store i of lane l writes float4 base + 32 i + l, so one
+// store instruction fills one contiguous 512-byte run.  q is loaded in
+// the same layout, 4 bytes a lane (one 128-byte run an instruction), all
+// kDqRuns loads (and the addend's float4s) issued before the first store:
+// 32 values in flight per lane.  A run lies inside one quant block and
+// one row, so its scale is one broadcast load and its addend row one
+// pointer.  Spans past the end are cut at a run.
+
 // Build without --use_fast_math: IEEE division and rintf are part of the
 // contract.  Plain C interface, loaded with ctypes: every entry point
 // launches on the caller's stream and returns cudaGetLastError() right
@@ -182,36 +190,52 @@ quant_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   if (lane == 0) scales[warp] = scale;
 }
 
+constexpr int kDqRuns = 8;                  // runs of 32 float4 per warp
+constexpr int kDqSpan = 32 * kDqRuns;       // float4 per warp
+constexpr int kBlockFloat4 = kQuantBlock / 4;
+
+template <bool kAcc>
 __global__ void __launch_bounds__(kThreads)
 dequant_int8_kernel(const int8_t* __restrict__ q,
                     const float* __restrict__ scales,
                     const float* __restrict__ acc, float* __restrict__ out,
-                    int64_t n16, int64_t row16, int64_t ld_acc) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= n16) return;
-  const int4 raw = __ldg(reinterpret_cast<const int4*>(q) + t);
-  const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z,
-                         (uint32_t)raw.w};
-  const float s = __ldg(scales + (t >> 4));       // 16 threads per block
-  float4* o = reinterpret_cast<float4*>(out) + 4 * t;
-  const float4* a = nullptr;
-  if (acc != nullptr) {
-    const int64_t row = t / row16;
-    a = reinterpret_cast<const float4*>(acc + row * ld_acc +
-                                        (t - row * row16) * 16);
-  }
+                    int64_t n4, int64_t row4, int64_t ld_acc) {
+  const int lane = threadIdx.x & 31;
+  const int64_t base =
+      ((blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5) * kDqSpan;
+  if (base >= n4) return;                  // whole warps exit together
+  const uint32_t* qw = reinterpret_cast<const uint32_t*>(q);
+  uint32_t w[kDqRuns];
+  float s[kDqRuns];
+  float4 c[kDqRuns];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kDqRuns; ++i) {
+    const int64_t run = base + 32 * i;     // n4 is a multiple of 64
+    if (run < n4) {
+      w[i] = __ldg(qw + run + lane);
+      s[i] = __ldg(scales + run / kBlockFloat4);
+      if (kAcc) {
+        const int64_t row = run / row4;
+        c[i] = __ldg(reinterpret_cast<const float4*>(acc + row * ld_acc) +
+                     (run - row * row4) + lane);
+      }
+    }
+  }
+  float4* o = reinterpret_cast<float4*>(out);
+#pragma unroll
+  for (int i = 0; i < kDqRuns; ++i) {
+    const int64_t run = base + 32 * i;
+    if (run >= n4) break;
     float v[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) v[j] = (float)(int8_t)(w[i] >> (8 * j));
-    if (a == nullptr) {
-      o[i] = make_float4(__fmul_rn(v[0], s), __fmul_rn(v[1], s),
-                         __fmul_rn(v[2], s), __fmul_rn(v[3], s));
+    if (kAcc) {
+      o[run + lane] = make_float4(
+          __fmaf_rn(v[0], s[i], c[i].x), __fmaf_rn(v[1], s[i], c[i].y),
+          __fmaf_rn(v[2], s[i], c[i].z), __fmaf_rn(v[3], s[i], c[i].w));
     } else {
-      const float4 c = __ldg(a + i);
-      o[i] = make_float4(__fmaf_rn(v[0], s, c.x), __fmaf_rn(v[1], s, c.y),
-                         __fmaf_rn(v[2], s, c.z), __fmaf_rn(v[3], s, c.w));
+      o[run + lane] = make_float4(__fmul_rn(v[0], s[i]), __fmul_rn(v[1], s[i]),
+                                  __fmul_rn(v[2], s[i]), __fmul_rn(v[3], s[i]));
     }
   }
 }
@@ -263,7 +287,7 @@ int uno_quant_int8(const float* x, int8_t* q, float* scales, long long n_rows,
   return (int)cudaGetLastError();
 }
 
-// q: (n_rows, row_len) int8 contiguous, 16-byte aligned, row_len % 256
+// q: (n_rows, row_len) int8 contiguous, 4-byte aligned, row_len % 256
 // == 0; scales: (n_rows, row_len / 256) f32; out: (n_rows, row_len) f32.
 // acc: null, or (n_rows, row_len) f32 with row stride ld_acc (elements,
 // 16-byte aligned rows): out = fma(q, scale, acc), one rounding.
@@ -272,10 +296,16 @@ int uno_dequant_int8(const int8_t* q, const float* scales, const float* acc,
                      long long ld_acc, cudaStream_t stream) {
   if (n_rows < 1 || row_len < kQuantBlock || row_len % kQuantBlock)
     return (int)cudaErrorInvalidValue;
-  const int64_t row16 = row_len / 16;
-  const int64_t n16 = n_rows * row16;
-  dequant_int8_kernel<<<blocks_for(n16), kThreads, 0, stream>>>(
-      q, scales, acc, out, n16, row16, ld_acc);
+  const int64_t row4 = row_len / 4;
+  const int64_t n4 = n_rows * row4;        // a multiple of 64
+  const int blocks = blocks_for((n4 + kDqSpan - 1) / kDqSpan * 32);
+  if (acc == nullptr) {
+    dequant_int8_kernel<false><<<blocks, kThreads, 0, stream>>>(
+        q, scales, acc, out, n4, row4, ld_acc);
+  } else {
+    dequant_int8_kernel<true><<<blocks, kThreads, 0, stream>>>(
+        q, scales, acc, out, n4, row4, ld_acc);
+  }
   return (int)cudaGetLastError();
 }
 

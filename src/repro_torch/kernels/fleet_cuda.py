@@ -19,11 +19,13 @@ exchange (``csrc/fleet_kernels.cu``), replacing the Pallas TPU kernels of
     the caller points it (a row of a halo exchange's stacked buffer).
     `link_scatter_tiles` and the tiled branch of `path_table_scatter`
     (stage 2) run on it.  Bitwise equal to K1 on the same CSR.
-  * `row_gathers` — K2, one thread per row of an (R, h) index table:
-    min / 1 - prod / sum of the packed per-link values over the row's
-    hops.  `link_gathers` (flat, R = n*p rows of max_hops) and
-    `path_table_gathers` (R = U unique segments of hseg hops, then the
-    per-subflow prefix/suffix composition in torch) run on it.
+  * `link_gathers` — K2 (TPU row 2): min / 1 - prod / sum of the three
+    per-link vectors (scale, clean, delay) over each subflow's hops of
+    the (n, p, h) pad_idx table, the scratch slot reading (1, 1, 0).
+  * `path_table_gathers` — K2 over the PathTable (TPU row 5, the whole
+    function, `uno_pt_gathers`): the per-segment reductions of the
+    (U, hseg) table, then the per-subflow prefix/suffix composition, two
+    device kernels a call and no torch work around them.
 
 Device rule: a wrapper given CPU tensors runs its kernel's plain version
 (`repro_torch.kernels.ref`); given CUDA tensors it launches the kernel or
@@ -260,53 +262,85 @@ def path_table_scatter(pt, sub_vals: torch.Tensor,
 
 # ------------------------------------------------------------------ K2
 
-def row_gathers(idx: torch.Tensor, packed: torch.Tensor, *,
-                use: str = "flat"):
-    """(min col 0, 1 - prod col 1, sum col 2) over each row of the (R, h)
-    int32 index table into the (L + 1, 4) f32 packed per-link table.
-    Returns three (R,) f32."""
-    _check(idx, "idx", torch.int32, 2)
-    _check(packed, "packed", torch.float32, 2)
-    if packed.shape[1] != 4:
-        raise ValueError(f"packed must be (L + 1, 4), got {tuple(packed.shape)}")
-    if idx.shape[1] < 1:
-        raise ValueError("index rows need at least one hop")
-    if not _on_cuda(idx, packed):
-        return ref.row_gathers_ref(idx, packed)
-    if packed.data_ptr() % 16:
-        raise ValueError("packed must be 16-byte aligned")
-    r, h = idx.shape
-    outs = [torch.empty(r, dtype=torch.float32, device=idx.device)
-            for _ in range(3)]
-    if r == 0:
-        return tuple(outs)
-    from repro_torch.kernels import build
-    lib = build.load("fleet")
-    err = lib.uno_link_gathers(idx.data_ptr(), packed.data_ptr(),
-                               *(o.data_ptr() for o in outs), r, h,
-                               torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "uno_link_gathers")
-    LAUNCHES["link_gathers/" + use] += 1
-    return tuple(outs)
+def _link_values(scale, clean, delay) -> int:
+    """Check K2's per-link operands; returns the link count L."""
+    for name, t in (("scale", scale), ("clean", clean), ("delay", delay)):
+        _check(t, name, torch.float32, 1)
+    n = scale.shape[0]
+    if clean.shape[0] != n or delay.shape[0] != n:
+        raise ValueError(f"scale / clean / delay lengths differ: {n}, "
+                         f"{clean.shape[0]}, {delay.shape[0]}")
+    return n
+
+
+def _gather_outputs(n: int, p: int, dev):
+    out = torch.empty((3, n, p), dtype=torch.float32, device=dev)
+    return out, tuple(out.unbind(0))
 
 
 def link_gathers(pad_idx: torch.Tensor, scale, clean, delay):
-    """Fused link -> flow pass (the contract of fleet_pallas.link_gathers):
-    pad_idx (n, p, h) int32 in [0, L]; scale / clean / delay (L,) f32.
-    Returns (sub_scale, sub_frac, sub_delay), each (n, p) f32."""
+    """Fused link -> flow pass (the contract of fleet_pallas.link_gathers),
+    K2 over the flat hop table: pad_idx (n, p, h) int32 in [0, L]; scale /
+    clean / delay (L,) f32, the scratch slot L reading (1, 1, 0).
+    Returns (sub_scale, sub_frac, sub_delay), each (n, p) f32: min of
+    scale, 1 - product of clean and sum of delay over each subflow's hops.
+    One launch per call, counted as ``link_gathers/flat``."""
+    _check(pad_idx, "pad_idx", torch.int32, 3)
     n, p, h = pad_idx.shape
-    packed = ref.pack_link_values(scale, clean, delay)
-    outs = row_gathers(pad_idx.reshape(n * p, h), packed, use="flat")
-    return tuple(o.reshape(n, p) for o in outs)
+    if h < 1:
+        raise ValueError("hop rows need at least one hop")
+    n_links = _link_values(scale, clean, delay)
+    if not _on_cuda(pad_idx, scale, clean, delay):
+        return ref.link_gathers_ref(pad_idx, scale, clean, delay)
+    out, outs = _gather_outputs(n, p, pad_idx.device)
+    if out.numel() == 0:
+        return outs
+    from repro_torch.kernels import build
+    lib = build.load("fleet")
+    err = lib.uno_link_gathers(pad_idx.data_ptr(), scale.data_ptr(),
+                               clean.data_ptr(), delay.data_ptr(), n_links,
+                               out.data_ptr(), n * p, h,
+                               torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "uno_link_gathers")
+    LAUNCHES["link_gathers/flat"] += 1
+    return outs
 
 
 def path_table_gathers(pt, scale, clean, delay):
-    """Link -> flow pass through the PathTable: K2 once per unique segment
-    over the (U, hseg) table, then two per-subflow takes compose the
-    prefix/suffix halves (min of scales, product of the clean
-    probabilities, sum of delays).  Same contract as `link_gathers`."""
-    packed = ref.pack_link_values(scale, clean, delay)
-    seg_scale, seg_frac, seg_delay = row_gathers(pt.seg_idx, packed,
-                                                 use="pt_segments")
-    return ref.compose_segments(pt.pre_id, pt.suf_id, seg_scale,
-                                1.0 - seg_frac, seg_delay)
+    """Link -> flow pass through the PathTable (the contract of
+    fleet_pallas.path_table_gathers), computed in full by
+    ``uno_pt_gathers``: each unique segment's min / product / sum over its
+    hseg hops of `pt.seg_idx` into a (U, 4) scratch table, then each
+    subflow's `pt.pre_id` / `pt.suf_id` halves composed (min of scales,
+    1 - product of the clean products, sum of delays).  Same contract as
+    `link_gathers`.  Each call launches that kernel pair once and adds
+    one to ``pt_gathers``."""
+    pre, suf, seg_idx = pt.pre_id, pt.suf_id, pt.seg_idx
+    _check(pre, "pre_id", torch.int32, 2)
+    _check(suf, "suf_id", torch.int32, 2)
+    _check(seg_idx, "seg_idx", torch.int32, 2)
+    if suf.shape != pre.shape:
+        raise ValueError(f"pre_id {tuple(pre.shape)} and suf_id "
+                         f"{tuple(suf.shape)} differ")
+    u, hseg = seg_idx.shape
+    if hseg < 1:
+        raise ValueError("segments need at least one hop")
+    n_links = _link_values(scale, clean, delay)
+    if not _on_cuda(pre, suf, seg_idx, scale, clean, delay):
+        return ref.pt_gathers_ref(pre, suf, seg_idx, scale, clean, delay)
+    n, p = pre.shape
+    dev = pre.device
+    out, outs = _gather_outputs(n, p, dev)
+    if out.numel() == 0:
+        return outs
+    seg = torch.empty((u, 4), dtype=torch.float32, device=dev)
+    from repro_torch.kernels import build
+    lib = build.load("fleet")
+    err = lib.uno_pt_gathers(pre.data_ptr(), suf.data_ptr(),
+                             seg_idx.data_ptr(), scale.data_ptr(),
+                             clean.data_ptr(), delay.data_ptr(), n_links,
+                             seg.data_ptr(), out.data_ptr(), n * p, u, hseg,
+                             torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "uno_pt_gathers")
+    LAUNCHES["pt_gathers"] += 1
+    return outs

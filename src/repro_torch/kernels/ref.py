@@ -12,9 +12,11 @@ Fleet flow<->link kernels, in two families:
     entry list), `csr_segment_sum_tiled_ref` (the same sum as the kernel
     decomposes it into tiles of entries, carries and head pieces),
     `csr_segment_sum_tiles_ref` (K6, the sum cut into private and
-    boundary tiles) and `row_gathers_ref` (K2, min / 1-prod /
-    sum over the hops of each row of an index table, reduced hop by hop in
-    the same order as the kernel so the results are bitwise comparable).
+    boundary tiles), `link_gathers_ref` (K2 flat: min / 1-prod / sum
+    over each subflow's hops) and `pt_gathers_ref` (K2 over the
+    PathTable: the same per unique segment, composed per subflow), both
+    reduced hop by hop and composed in the kernels' order, so the results
+    are bitwise comparable.
 
 UnoRC kernels (``repro.kernels.ref``'s GF and quant half): `gf_mul_ref`,
 `gf_matmul_ref` (log/exp table gathers, XOR-accumulated), `rs_encode_ref`,
@@ -201,36 +203,41 @@ def csr_segment_sum_tiled_ref(vals_ext, gather, ptr,
     return out
 
 
-def pack_link_values(scale, clean, delay):
-    """(L + 1, 4) f32 table [scale, clean, delay, 0] with the identity row
-    (1, 1, 0, 0) at the scratch slot L — K2's per-link operand."""
-    n = scale.shape[0]
-    packed = torch.zeros((n + 1, 4), dtype=torch.float32,
-                         device=scale.device)
-    packed[:n, 0] = scale
-    packed[:n, 1] = clean
-    packed[:n, 2] = delay
-    packed[n, 0] = 1.0
-    packed[n, 1] = 1.0
-    return packed
+def hop_reduce_ref(idx, scale, clean, delay):
+    """(min of scale, product of clean, sum of delay) over each row of
+    the (R, h) int32 hop table into the (L,) per-link vectors, hop id L
+    reading the identity (1, 1, 0); reduced hop 0 first, one rounding per
+    step — K2's order.  Returns three (R,) f32."""
+    i = idx.long()
+    s = append_identity(scale, 1.0)[i]
+    c = append_identity(clean, 1.0)[i]
+    d = append_identity(delay, 0.0)[i]
+    mn, prod, tot = s[:, 0], c[:, 0], d[:, 0]
+    for j in range(1, idx.shape[1]):
+        mn = torch.minimum(mn, s[:, j])
+        prod = prod * c[:, j]
+        tot = tot + d[:, j]
+    return mn, prod, tot
 
 
-def row_gathers_ref(idx, packed):
-    """K2's function over an (R, h) int32 index table into an (L + 1, 4)
-    packed per-link table: (min of column 0, 1 - prod of column 1, sum of
-    column 2) over each row's hops, reduced hop 0 first — the kernel's
-    order.  Returns three (R,) f32."""
-    v = packed[idx.long()]                      # (R, h, 4)
-    r, h = idx.shape
-    mn = v[:, 0, 0]
-    prod = torch.ones(r, dtype=packed.dtype, device=packed.device)
-    tot = torch.zeros(r, dtype=packed.dtype, device=packed.device)
-    for j in range(h):
-        if j:
-            mn = torch.minimum(mn, v[:, j, 0])
-        prod = prod * v[:, j, 1]
-        tot = tot + v[:, j, 2]
-    return mn, 1.0 - prod, tot
+def link_gathers_ref(pad_idx, scale, clean, delay):
+    """K2's flat function: pad_idx (n, p, h) int32 in [0, L] -> (min of
+    scale, 1 - product of clean, sum of delay) per subflow, each (n, p)
+    f32, in the kernel's order."""
+    n, p, h = pad_idx.shape
+    mn, prod, tot = hop_reduce_ref(pad_idx.reshape(n * p, h), scale, clean,
+                                   delay)
+    return mn.reshape(n, p), (1.0 - prod).reshape(n, p), tot.reshape(n, p)
+
+
+def pt_gathers_ref(pre_id, suf_id, seg_idx, scale, clean, delay):
+    """K2's PathTable function (`path_table_gathers` in full): each unique
+    segment of seg_idx (U, hseg) reduced as `hop_reduce_ref` does, then
+    per subflow min(pre, suf), 1 - prod_pre * prod_suf and sum_pre +
+    sum_suf — the clean products multiplied directly, as the kernel does.
+    Returns three (n, p) f32."""
+    return compose_segments(pre_id, suf_id,
+                            *hop_reduce_ref(seg_idx, scale, clean, delay))
 
 
 # ----------------------------------------------- UnoRC: GF(2^8) and int8

@@ -1,0 +1,95 @@
+"""K2 (the fleet link -> flow gathers) and K5 (the UnoRC dequant) on the
+card, against their plain versions, bitwise.
+
+This file imports no JAX, so that it runs on the machine with the card:
+
+    python3 -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Every test is marked `gpu` and skips without a CUDA device.  K2 is held
+at unrolled hop counts and on the runtime loop, over a link table small
+enough for L1 and one that lives in L2; K5 at block counts on either
+side of its per-warp span, both uses.  The CPU tests
+(test_torch_gathers.py, test_torch_unorc.py) hold the plain versions
+against the JAX reference.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.fleetsim import links as TL  # noqa: E402
+from repro_torch.kernels import fleet_cuda, unorc_cuda  # noqa: E402
+from repro_torch.kernels import ref as TK  # noqa: E402
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _no_sync(fn):
+    """fn() with any host sync an error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _equal(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"{what} output {i}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1, 2, 5, 9, 16, 17])
+@pytest.mark.parametrize("n_links", [50, 60_000])
+def test_gathers_match_plain_versions_on_card(dev, h, n_links):
+    """Flat K2 and the PathTable kernel: bitwise equal to the plain
+    versions for unrolled hop counts and the runtime loop (h = 17);
+    scratch-only rows read the identity; two runs equal; no host sync."""
+    rng = np.random.default_rng(h * 131 + n_links)
+    idx = rng.integers(0, n_links + 1, (3001, 1, h)).astype(np.int32)
+    idx[:400] = n_links                              # scratch-only rows
+    idx = torch.from_numpy(idx).to(dev)
+    vals = [torch.from_numpy(v.astype(np.float32)).to(dev) for v in (
+        rng.uniform(0.05, 1.0, n_links), rng.uniform(0.9, 1.0, n_links),
+        rng.uniform(0.0, 1e3, n_links))]
+    got = _no_sync(lambda: fleet_cuda.link_gathers(idx, *vals))
+    _equal(got, TK.link_gathers_ref(idx, *vals), "flat")
+    _equal(fleet_cuda.link_gathers(idx, *vals), got, "flat twice")
+    assert bool((got[0][:400] == 1.0).all() and (got[1][:400] == 0.0).all()
+                and (got[2][:400] == 0.0).all())
+    seg_idx = idx[:, 0].contiguous()
+    ids = [torch.from_numpy(rng.integers(0, seg_idx.shape[0], (4099, 3))
+                            .astype(np.int32)).to(dev) for _ in range(2)]
+    pt = TL.PathTable(*ids, seg_idx, *(None,) * 4)
+    got = _no_sync(lambda: fleet_cuda.path_table_gathers(pt, *vals))
+    _equal(got, TK.pt_gathers_ref(*ids, seg_idx, *vals), "path table")
+    _equal(fleet_cuda.path_table_gathers(pt, *vals), got, "path table twice")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_blocks", [1, 2, 3, 4, 5, 7, 9, 4099])
+def test_dequant_matches_plain_version_on_card(dev, n_blocks):
+    """K5, both uses, bitwise equal to the plain version at block counts
+    on either side of the kernel's per-warp span (4 blocks), the
+    addend's rows strided; no host sync."""
+    rng = np.random.default_rng(n_blocks)
+    n = 256 * n_blocks
+    q = torch.from_numpy(rng.integers(-127, 128, (3, n)).astype(np.int8))
+    s = torch.from_numpy((np.abs(rng.normal(size=(3, n_blocks))) * 1e-4
+                          ).astype(np.float32))
+    wide = torch.from_numpy((rng.normal(size=(3, n + 64)) * 1e-3
+                             ).astype(np.float32))
+    q, s, wide = q.to(dev), s.to(dev), wide.to(dev)
+    acc = wide[:, 32:32 + n]
+    plain = _no_sync(lambda: unorc_cuda.dequant_int8(q, s))
+    fused = _no_sync(lambda: unorc_cuda.dequant_int8(q, s, acc))
+    assert torch.equal(plain, TK.dequant_int8_ref(q, s))
+    assert torch.equal(fused, TK.dequant_int8_ref(q, s, acc=acc))

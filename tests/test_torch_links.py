@@ -286,17 +286,23 @@ def test_segment_sum_plain_version_semantics():
 
 
 def test_row_gathers_plain_version_semantics():
+    """K2's plain version over hop rows: min of scale, 1 - product of
+    clean and sum of delay over each row's hops, the scratch slot L
+    reading the identity (1, 1, 0)."""
     rng = np.random.default_rng(22)
-    packed = TK.pack_link_values(*(_t(rng.uniform(0.1, 1, 6)
-                                      .astype(np.float32)) for _ in range(3)))
-    idx = rng.integers(0, 7, (11, 4)).astype(np.int32)
+    scale, clean, delay = (_t(rng.uniform(0.1, 1, 6).astype(np.float32))
+                           for _ in range(3))
+    idx = rng.integers(0, 7, (11, 1, 4)).astype(np.int32)
     idx[0] = 6                                       # all scratch: identity
-    mn, frac, tot = fleet_cuda.row_gathers(_t(idx), packed)
-    v = packed.numpy()[idx]
-    np.testing.assert_array_equal(mn.numpy(), v[..., 0].min(axis=1))
-    np.testing.assert_allclose(frac.numpy(), 1 - v[..., 1].prod(axis=1),
+    mn, frac, tot = (o[:, 0] for o in
+                     fleet_cuda.link_gathers(_t(idx), scale, clean, delay))
+    ext = [np.append(v.numpy(), f) for v, f in
+           ((scale, 1.0), (clean, 1.0), (delay, 0.0))]
+    v = [e[idx[:, 0]] for e in ext]
+    np.testing.assert_array_equal(mn.numpy(), v[0].min(axis=1))
+    np.testing.assert_allclose(frac.numpy(), 1 - v[1].prod(axis=1),
                                rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(tot.numpy(), v[..., 2].sum(axis=1),
+    np.testing.assert_allclose(tot.numpy(), v[2].sum(axis=1),
                                rtol=1e-6, atol=1e-6)
     assert mn[0] == 1.0 and frac[0] == 0.0 and tot[0] == 0.0
 
@@ -309,9 +315,10 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="contiguous"):
         fleet_cuda.segment_sum(
             vals, torch.zeros(4, dtype=torch.int32)[::2], ptr)
-    with pytest.raises(ValueError, match="packed"):
-        fleet_cuda.row_gathers(torch.zeros((2, 2), dtype=torch.int32),
-                               torch.zeros((3, 3)))
+    with pytest.raises(ValueError, match="lengths differ"):
+        fleet_cuda.link_gathers(torch.zeros((2, 1, 2), dtype=torch.int32),
+                                torch.zeros(3), torch.zeros(3),
+                                torch.zeros(4))
     with pytest.raises(ValueError, match="devices"):
         fleet_cuda.segment_sum(vals, torch.zeros(2, dtype=torch.int32),
                                ptr.to("meta"))
