@@ -51,10 +51,13 @@ Phases, each printing one JSON line:
   7. unorc_kernels — the UnoRC kernels against their plain versions on
                the card at the shapes of one p = 2 chunk of smollm-135m's
                full gradient (2 pods x 16,816,128 f32): K3 encode and
-               decode (rows {0, 1} from the survivors), K4 quant (zero
-               blocks included), K5 dequant and its fused add, all
-               bitwise, two runs bitwise equal, median CUDA-event time
-               over 25 launches; K5 beside `torch.mul` (plain use) and
+               decode (rows {0, 1} from the survivors), also at the p = 4
+               ring's part of a chunk (4 pods x 8 rows x 525,504 bytes,
+               `gf_matmul/*@p4`), K4 quant (zero blocks included), K5
+               dequant and its fused add, all bitwise, two runs bitwise
+               equal, median CUDA-event time over 25 launches, device
+               kernels and device time per call from the profiler; K5
+               beside `torch.mul` (plain use) and
                `torch.addcmul` (fused use), each a library time only if
                bitwise equal to K5; both K5 uses again at 1, 2, 3, 5 and
                4,099 blocks (the tail of its 4-block warp span), strided
@@ -519,7 +522,10 @@ def call_profile(fn, n: int = 20) -> dict:
     """Device kernels and device time per call of `fn`, from a
     torch.profiler trace of n calls (after one warm-up call).  Sleep
     kernels open and close the trace and are not counted: the profiler
-    can miss the first and last events of a short session."""
+    can miss the first and last events of a short session.  It can also
+    drop launches in the middle (device_kernels_per_call then falls
+    short of the function's kernel count, and device_us_per_call with
+    it), so the mean time of the kernels it did record is kept too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -534,9 +540,11 @@ def call_profile(fn, n: int = 20) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and "spin_kernel" not in e.name]
+    total = sum(e.time_range.elapsed_us() for e in kernels)
     return dict(device_kernels_per_call=len(kernels) / n,
-                device_us_per_call=sum(e.time_range.elapsed_us()
-                                       for e in kernels) / n)
+                device_us_per_call=total / n,
+                device_us_per_kernel=total / len(kernels) if kernels
+                else None)
 
 
 def profile_step(fs, state, n: int = 20):
@@ -814,7 +822,8 @@ def uno_chunk_len(n_params: int, run) -> int:
 
 def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
     """Every UnoRC kernel use against its plain version on the card at the
-    shapes of one chunk of the p = 2 sync, and the 55 erasure patterns;
+    shapes of one chunk of the p = 2 sync, K3 also at one part of a chunk
+    of the p = 4 ring, and the 55 erasure patterns;
     returns the per-kernel records (`path`/`counter` as in
     `kernel_phase`) and the pattern count."""
     import itertools
@@ -834,16 +843,16 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
     records = []
 
     def record(counter, path, replaces, kernel, plain, n_bytes, n_ops=0,
-               library=None):
+               library=None, name=None):
         """`library`: one PyTorch call that may compute the same
         function, timed; its time is `library_ms` only if it is bitwise
-        equal to the kernel."""
+        equal to the kernel.  `name` defaults to the counter."""
         o1, o2 = kernel(), kernel()
         torch.cuda.synchronize()
         want = plain()
         o1, o2, want = ((o,) if torch.is_tensor(o) else o
                         for o in (o1, o2, want))
-        name = counter
+        name = name or counter
         check(all(torch.equal(a, b) for a, b in zip(o1, want)),
               f"{name}: kernel differs from its plain version")
         check(all(torch.equal(a, b) for a, b in zip(o1, o2)),
@@ -866,7 +875,7 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
             "operations",
             library_ms=extra.get("library_call_ms")
             if extra.get("library_bitwise_equal") else None,
-            bytes=n_bytes, ops=n_ops,
+            bytes=n_bytes, ops=n_ops, **call_profile(kernel),
             shape=[int(v) for v in o1[0].shape], **extra))
         return o1 if len(o1) > 1 else o1[0]
 
@@ -893,6 +902,27 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
                      lambda: ref.gf_matmul_ref(dec, surv),
                      n_pods * (nx + ny) * width)
     check(torch.equal(rebuilt, rows[:, :ny]), "decode: rows {0, 1} lost")
+    # K3 at the p = 4 ring's shape: each of its 48 + 48 launches a sync
+    # protects one part (1 / p) of a chunk for every pod
+    p4 = max(UNO_PODS)
+    part = -(-c // p4)
+    w4 = -(-part // 256) * 256 // nx
+    rows4 = torch.randint(0, 256, (p4, nx, w4), dtype=torch.uint8,
+                          device=dev, generator=g)
+    parity4 = record("gf_matmul/encode", uno_path(p4),
+                     "src/repro/kernels/rs_pallas.py:56",
+                     lambda: K.gf_matmul(rows4, enc, use="encode"),
+                     lambda: ref.gf_matmul_ref(enc, rows4),
+                     p4 * (nx + ny) * w4, name=f"gf_matmul/encode@p{p4}")
+    surv4 = torch.cat([rows4[:, ny:], parity4], dim=1)
+    rebuilt4 = record("gf_matmul/decode", uno_path(p4),
+                      "src/repro/kernels/rs_pallas.py:56",
+                      lambda: K.gf_matmul(surv4, dec, use="decode"),
+                      lambda: ref.gf_matmul_ref(dec, surv4),
+                      p4 * (nx + ny) * w4, name=f"gf_matmul/decode@p{p4}")
+    check(torch.equal(rebuilt4, rows4[:, :ny]),
+          f"decode at p={p4}: rows {{0, 1}} lost")
+    del rows4, parity4, surv4, rebuilt4
     qb, sb = q.view(n_pods, nb, 256), s[..., None]
     record("dequant_int8", uno_path(4), "src/repro/kernels/quant_pallas.py:59",
            lambda: K.dequant_int8(q, s), lambda: ref.dequant_int8_ref(q, s),

@@ -10,24 +10,44 @@
 //                          blockwise absmax int8, block 256;
 //   K5 uno_dequant_int8 <- repro/kernels/quant_pallas.py dequant_int8.
 //
-// All three are bound by bytes: they touch each byte once and do a few
-// integer or float operations on it.  The designs keep every warp's
-// loads and stores on contiguous runs of memory, and compute in registers.
+// K4 and K5 are bound by bytes: they touch each byte once and do a few
+// float operations on it.  K3 does some 230 integer operations for every
+// 4 bytes of a decode column, so on Hopper it is bound by bytes only if
+// those stay under the byte time.  The designs keep every warp's loads
+// and stores on contiguous runs of memory, and compute in registers.
 //
 // K3: a static (M, K) coefficient matrix (the encode rows, or a decode
-// matrix solved on the host) times a batch of (K, B) byte matrices.  One
-// thread owns one 16-byte column of one batch entry: it loads the column
-// of each of the K input rows as four 32-bit words and multiplies them by
-// the constants with a SWAR xtime ladder (multiply-by-2 on four packed
-// bytes at once: ((v & 0x7f7f7f7f) << 1) ^ (((v >> 7) & 0x01010101) *
-// 0x1d)), XOR-accumulating into the M output columns.  Only shifts, masks
-// and XORs: no table gathers, no shared-memory bank conflicts.  XOR is
-// exact, so the result is bitwise the table-based product.  The TPU
-// kernel used the same ladder because its vector unit has no gather; here
-// it is simply the cheapest exact form.  The coefficients travel by value
-// in the kernel's parameters (no recompilation per erasure pattern) and
-// are staged in shared memory, so a runtime K indexes them without local
-// memory.  Rows whose width is not a multiple of 16 take a byte path.
+// matrix solved on the host) times a batch of (K, B) byte matrices.  A
+// thread owns a 16-byte column of one batch entry at a time and computes
+// its M output columns as four 32-bit words each.  Write out_m = sum_b
+// 2^b S_{m,b}, where S_{m,b} is the XOR of the x_k whose coefficient c_mk
+// has bit b set; Horner over the bits, acc = S_{m,7}; acc = xtime(acc) ^
+// S_{m,6}; ...; ^ S_{m,0}, costs M x 7 SWAR xtimes a word (multiply-by-2
+// on four packed bytes) and one select-and-XOR per (m, b, k).  The TPU
+// kernel ran the ladder on the inputs instead (K x 7 xtimes, then a
+// conditional XOR per set bit) because its vector unit has no gather;
+// ported as it was, that form made K3 wait on instruction issue (~600
+// instructions a word at M = 2, K = 8).  Here the coefficients travel by
+// value as one word per (m, b, k) in the kernel's parameters (`GfPlanes`,
+// built by unorc_cuda.gf_planes), so they are constant-bank operands:
+// no shared-memory loads, no per-bit branches, no rebuild per erasure
+// pattern.  Half the words are AND masks (acc ^= x & mask, one LOP3) and
+// half multipliers (acc ^= x * 1 ^ x' * 1, two IMADs and a LOP3), and
+// xtime's shift and reduction are products too: on Hopper the logic ops
+// and the multiplies issue to two pipes of 64 lanes a clock each, and
+// the logic pipe alone was the limit.  A plane (m, b) with no set bit is
+// skipped, and so are the doublings of a still-zero acc, by branches
+// uniform across the grid (the encode rows have 9 live planes of 16).
+// K is a template parameter, so the K x 4 input words stay in registers;
+// the grid is one wave of resident blocks that stride over the columns,
+// and for K <= 8 each thread loads its next column while it computes this
+// one, so that loads and arithmetic overlap.  On the p = 2 chunk of the
+// sync, encode then runs at its byte bound and decode, with all 16
+// planes live, at about three quarters of it: there the arithmetic is
+// still about two thirds of the byte time and the overlap is partial.
+// XOR is exact, so the result is bitwise the table-based product.  Rows
+// whose width is not a multiple of 16, or unaligned pointers, take a
+// byte path.
 //
 // K4: one warp per 256-value block; each lane holds 8 floats (two float4
 // loads, 128 floats apart, so a warp's loads are two contiguous 512-byte
@@ -59,6 +79,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -68,12 +89,30 @@ constexpr int kMaxK = 16;
 constexpr int kQuantBlock = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct GfCoeffs {
-  unsigned char c[kMaxM * kMaxK];   // row-major (M, K)
-};
+constexpr int kBits = 8;            // GF(2^8): bit planes of a coefficient
 
+// K3's coefficient block (unorc_cuda.gf_planes builds it): word[m][b][k]
+// selects x_k into plane (m, b) if bit b of coeffs[m][k] is set: as an
+// AND mask (~0, else 0) where k & 2 == 0, as a multiplier (1, else 0)
+// where k & 2 != 0, so that half the terms run on the multiply pipe; bit
+// 8 m + b of `live` says plane (m, b) has a set bit, of `dbl` that a
+// plane above b of row m has one (so acc may be nonzero and the Horner
+// step doubles it).
+struct GfPlanes {
+  uint32_t word[kMaxM][kBits][kMaxK];
+  uint32_t live;
+  uint32_t dbl;
+};
+constexpr int kGfPlaneWords = kMaxM * kBits * kMaxK + 2;
+static_assert(sizeof(GfPlanes) == 4 * kGfPlaneWords, "GfPlanes layout");
+
+// Multiply by 2 in GF(2^8) on four packed bytes: ((v & 0x7f7f7f7f) << 1)
+// ^ (((v >> 7) & 0x01010101) * 0x1d), written so that the shift and the
+// reduction, (hi * 0x1d) >> 7 (carry-free: 0x80 * 0x1d spans bits 7-11 of
+// each byte), run on the multiply pipe.
 __device__ __forceinline__ uint32_t xtime4(uint32_t v) {
-  return ((v & 0x7f7f7f7fu) << 1) ^ (((v >> 7) & 0x01010101u) * 0x1du);
+  const uint32_t hi = v & 0x80808080u;
+  return (v * 2u) ^ (hi * 2u) ^ __umulhi(hi, 0x1du << 25);
 }
 
 __device__ __forceinline__ void load16(const uint8_t* p, int64_t left,
@@ -107,50 +146,99 @@ __device__ __forceinline__ void store16(uint8_t* p, int64_t left, bool vec,
   }
 }
 
-template <int M>
-__global__ void __launch_bounds__(kThreads)
+template <int K>
+__device__ __forceinline__ void gf_load(const uint8_t* __restrict__ x,
+                                        int64_t item, uint32_t cols,
+                                        int64_t width, bool vec,
+                                        uint32_t (&v)[K][4]) {
+  const uint32_t g = (uint32_t)item / cols;
+  const int64_t col = ((uint32_t)item - g * cols) * (int64_t)16;
+  const uint8_t* xg = x + g * (int64_t)K * width + col;
+#pragma unroll
+  for (int k = 0; k < K; ++k) load16(xg + k * width, width - col, vec, v[k]);
+}
+
+// A persistent grid: thread t owns columns t, t + stride, ... of the
+// flattened (group, column) space, and for K <= 8 loads the next column's
+// K words while it computes this one (no spills there at 128 registers).
+template <int M, int K>
+__global__ void __launch_bounds__(kThreads, 2)
 gf_matmul_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out,
-                 GfCoeffs coeffs, int64_t n_groups, int k_rows, int64_t width,
-                 int64_t cols, bool vec) {
-  __shared__ unsigned char sc[kMaxM * kMaxK];
-  if (threadIdx.x < M * k_rows) sc[threadIdx.x] = coeffs.c[threadIdx.x];
-  __syncthreads();
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= n_groups * cols) return;
-  const int64_t g = t / cols;
-  const int64_t col = (t - g * cols) * 16;
-  const int64_t left = width - col;
-  const uint8_t* xg = x + g * k_rows * width + col;
-  uint32_t acc[M][4];
+                 const GfPlanes planes, int64_t n_items, uint32_t cols,
+                 int64_t width, bool vec) {
+  constexpr bool kPrefetch = K <= 8;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  int64_t i = blockIdx.x * (int64_t)kThreads + threadIdx.x;
+  if (i >= n_items) return;
+  uint32_t v[K][4];
+  gf_load<K>(x, i, cols, width, vec, v);
+  for (;;) {
+    const int64_t next = i + stride;
+    uint32_t vn[kPrefetch ? K : 1][4];
+    if constexpr (kPrefetch) {
+      if (next < n_items) gf_load<K>(x, next, cols, width, vec, vn);
+    }
+    uint32_t acc[M][4];
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
+    for (int m = 0; m < M; ++m) {
 #pragma unroll
-    for (int w = 0; w < 4; ++w) acc[m][w] = 0u;
-  }
-#pragma unroll 4
-  for (int k = 0; k < k_rows; ++k) {
-    uint32_t v[4];
-    load16(xg + k * width, left, vec, v);
-    unsigned live = 0;
+      for (int w = 0; w < 4; ++w) acc[m][w] = 0u;
 #pragma unroll
-    for (int m = 0; m < M; ++m) live |= sc[m * k_rows + k];
+      for (int b = kBits - 1; b >= 0; --b) {
+        const uint32_t plane = 1u << (kBits * m + b);
+        if (planes.dbl & plane) {
 #pragma unroll
-    for (int bit = 0; bit < 8; ++bit) {
-      if ((live >> bit) == 0u) break;
+          for (int w = 0; w < 4; ++w) acc[m][w] = xtime4(acc[m][w]);
+        }
+        if (planes.live & plane) {
+#define GF_WORD(j) planes.word[m][b][j]
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        if ((sc[m * k_rows + k] >> bit) & 1u) {
+          for (int k = 0; k < K; k += 4) {
 #pragma unroll
-          for (int w = 0; w < 4; ++w) acc[m][w] ^= v[w];
+            for (int w = 0; w < 4; ++w) {
+              uint32_t a = acc[m][w] ^ (v[k][w] & GF_WORD(k));
+              if (k + 1 < K) a ^= v[k + 1][w] & GF_WORD(k + 1);
+              if (k + 2 < K) {
+                const uint32_t p = v[k + 2][w] * GF_WORD(k + 2);
+                a ^= k + 3 < K ? p ^ v[k + 3][w] * GF_WORD(k + 3) : p;
+              }
+              acc[m][w] = a;
+            }
+          }
+#undef GF_WORD
         }
       }
-#pragma unroll
-      for (int w = 0; w < 4; ++w) v[w] = xtime4(v[w]);
     }
-  }
-  uint8_t* og = out + g * M * width + col;
+    const uint32_t g = (uint32_t)i / cols;
+    const int64_t col = ((uint32_t)i - g * cols) * (int64_t)16;
+    uint8_t* og = out + g * (int64_t)M * width + col;
 #pragma unroll
-  for (int m = 0; m < M; ++m) store16(og + m * width, left, vec, acc[m]);
+    for (int m = 0; m < M; ++m)
+      store16(og + m * width, width - col, vec, acc[m]);
+    if (next >= n_items) break;
+    if constexpr (kPrefetch) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+#pragma unroll
+        for (int w = 0; w < 4; ++w) v[k][w] = vn[k][w];
+      }
+    } else {
+      gf_load<K>(x, next, cols, width, vec, v);
+    }
+    i = next;
+  }
+}
+
+using GfKernel = void (*)(const uint8_t*, uint8_t*, const GfPlanes, int64_t,
+                          uint32_t, int64_t, bool);
+
+template <int M, int K = 1>
+GfKernel gf_kernel_for(int k) {
+  if constexpr (K > kMaxK) {
+    return nullptr;
+  } else {
+    return k == K ? gf_matmul_kernel<M, K> : gf_kernel_for<M, K + 1>(k);
+  }
 }
 
 __device__ __forceinline__ int8_t quant1(float v, float scale) {
@@ -249,27 +337,47 @@ int blocks_for(int64_t threads) {
 extern "C" {
 
 // x: (n_groups, k, width) uint8; out: (n_groups, m, width) uint8;
-// coeffs: host (m, k) bytes, 1 <= m <= 4, 1 <= k <= 16.  vec != 0 only
-// when width % 16 == 0 and both pointers are 16-byte aligned.
-int uno_gf_matmul(const uint8_t* x, uint8_t* out, const unsigned char* coeffs,
+// planes: host GfPlanes as kGfPlaneWords words, 1 <= m <= 4,
+// 1 <= k <= 16.  vec != 0 only when width % 16 == 0 and both pointers are
+// 16-byte aligned.
+int uno_gf_matmul(const uint8_t* x, uint8_t* out, const uint32_t* planes,
                   long long n_groups, int m, int k, long long width, int vec,
                   cudaStream_t stream) {
   if (m < 1 || m > kMaxM || k < 1 || k > kMaxK || n_groups < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
-  GfCoeffs c = {};
-  for (int i = 0; i < m * k; ++i) c.c[i] = coeffs[i];
-  const int64_t cols = (width + 15) / 16;
-  const int blocks = blocks_for(n_groups * cols);
+  GfPlanes p;
+  memcpy(&p, planes, sizeof(p));
+  GfKernel kernel;
   switch (m) {
-    case 1: gf_matmul_kernel<1><<<blocks, kThreads, 0, stream>>>(
-                x, out, c, n_groups, k, width, cols, vec != 0); break;
-    case 2: gf_matmul_kernel<2><<<blocks, kThreads, 0, stream>>>(
-                x, out, c, n_groups, k, width, cols, vec != 0); break;
-    case 3: gf_matmul_kernel<3><<<blocks, kThreads, 0, stream>>>(
-                x, out, c, n_groups, k, width, cols, vec != 0); break;
-    default: gf_matmul_kernel<4><<<blocks, kThreads, 0, stream>>>(
-                x, out, c, n_groups, k, width, cols, vec != 0); break;
+    case 1: kernel = gf_kernel_for<1>(k); break;
+    case 2: kernel = gf_kernel_for<2>(k); break;
+    case 3: kernel = gf_kernel_for<3>(k); break;
+    default: kernel = gf_kernel_for<4>(k); break;
   }
+  const int64_t cols = (width + 15) / 16;
+  const int64_t n_items = n_groups * cols;
+  if (n_items >= (1ll << 32)) return (int)cudaErrorInvalidValue;
+  // one full wave of resident blocks (cached per device and kernel)
+  static int sms[64], per_sm[64][kMaxM + 1][kMaxK + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int& resident = per_sm[dev][m][k];
+  if (resident == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t wave = (int64_t)sms[dev] * (resident > 0 ? resident : 1);
+  const int64_t need = (n_items + kThreads - 1) / kThreads;
+  kernel<<<(unsigned)(need < wave ? need : wave), kThreads, 0, stream>>>(
+      x, out, p, n_items, (uint32_t)cols, width, vec != 0);
   return (int)cudaGetLastError();
 }
 

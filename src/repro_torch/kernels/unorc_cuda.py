@@ -4,7 +4,9 @@
 
   * `gf_matmul` — K3: a static (M, K) GF(2^8) coefficient matrix times a
     batch of (K, B) byte matrices.  `use` labels the launch count: the
-    RS encode rows are "encode", a solved decode matrix "decode".
+    RS encode rows are "encode", a solved decode matrix "decode".  The
+    kernel takes the matrix as one select word per (row, bit, input)
+    (`gf_planes`).
   * `quant_int8` — K4: blockwise absmax int8 over the last axis (256
     values per block), q and one f32 scale per block.
   * `dequant_int8` — K5: q * scale[block] in float32, or with an addend
@@ -19,10 +21,12 @@ raises — there is no fallback.  Each launch adds one to
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from collections import Counter
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -30,6 +34,8 @@ from repro_torch.kernels.fleet_cuda import _on_cuda, _raise_on
 
 QUANT_BLOCK = 256
 MAX_M, MAX_K = 4, 16            # the kernel's coefficient capacity
+GF_BITS = 8
+GF_MUL_K = (np.arange(MAX_K) & 2) != 0    # K3 terms taken as a multiply
 
 LAUNCHES: Counter = Counter()
 
@@ -47,6 +53,37 @@ def _aligned(*ts: torch.Tensor) -> bool:
 
 
 # ------------------------------------------------------------------ K3
+
+def gf_planes(coeffs) -> np.ndarray:
+    """K3's coefficient block (`GfPlanes` in the kernel source), as the
+    kernel takes it by value: (MAX_M * GF_BITS * MAX_K + 2,) uint32, read
+    only.  The first MAX_M * GF_BITS * MAX_K words, word[m][b][k], select
+    x_k into bit plane b of output row m when bit b of coeffs[m][k] is
+    set: as an AND mask (0xFFFFFFFF, else 0) where k & 2 == 0, as a
+    multiplier (1, else 0) where k & 2 != 0 (`GF_MUL_K`), so that the
+    kernel runs half its terms on the multiply pipe.  Then `live`, whose
+    bit 8 m + b says plane (m, b) has a set bit, and `dbl`, whose bit
+    8 m + b says a plane above b of row m has one (so the Horner step
+    before plane b doubles an accumulator that may be nonzero)."""
+    return _gf_planes(tuple(tuple(int(c) for c in row) for row in coeffs))
+
+
+@functools.lru_cache(maxsize=256)
+def _gf_planes(coeffs) -> np.ndarray:
+    c = np.zeros((MAX_M, MAX_K), dtype=np.uint32)
+    for m, row in enumerate(coeffs):
+        c[m, :len(row)] = row
+    bits = (c[:, None, :] >> np.arange(GF_BITS, dtype=np.uint32)[:, None]) & 1
+    live = bits.any(axis=2)                                 # (MAX_M, 8)
+    above = np.flip(np.cumsum(np.flip(live, 1), axis=1), 1) - live > 0
+    weight = 1 << np.arange(MAX_M * GF_BITS, dtype=np.uint64)
+    flags = [int((weight * f.ravel()).sum()) for f in (live, above)]
+    select = np.where(GF_MUL_K, 1, 0xFFFFFFFF).astype(np.uint32)
+    block = np.concatenate([(bits * select).ravel(),
+                            np.array(flags, dtype=np.uint32)])
+    block.setflags(write=False)
+    return block
+
 
 def gf_matmul(x: torch.Tensor, coeffs, *, use: str = "encode"
               ) -> torch.Tensor:
@@ -69,17 +106,21 @@ def gf_matmul(x: torch.Tensor, coeffs, *, use: str = "encode"
         raise ValueError("x must be contiguous")
     if not _on_cuda(x):
         return ref.gf_matmul_ref(coeffs, x)
+    n_groups = math.prod(x.shape[:-2])
+    if n_groups * -(-width // 16) >= 1 << 32:
+        raise ValueError(f"gf_matmul takes fewer than 2**32 16-byte columns "
+                         f"in all; got {n_groups} x {width} bytes")
     out = torch.empty(*x.shape[:-2], m, width, dtype=torch.uint8,
                       device=x.device)
     if out.numel() == 0:
         return out
     from repro_torch.kernels import build
     lib = build.load("unorc")
-    cbuf = (ctypes.c_ubyte * len(flat))(*flat)
+    planes = gf_planes(coeffs)
     vec = int(width % 16 == 0 and _aligned(x, out))
-    err = lib.uno_gf_matmul(x.data_ptr(), out.data_ptr(), cbuf,
-                            math.prod(x.shape[:-2]), m, k, width, vec,
-                            _stream())
+    err = lib.uno_gf_matmul(x.data_ptr(), out.data_ptr(),
+                            planes.ctypes.data_as(ctypes.c_void_p),
+                            n_groups, m, k, width, vec, _stream())
     _raise_on(err, "uno_gf_matmul")
     LAUNCHES["gf_matmul/" + use] += 1
     return out

@@ -7,8 +7,10 @@ are compiled from it host-side (`links.with_layout`), and everything moves
 to the device once.  Adaptive weight dynamics (LbParams) are enabled only
 for groups whose LbSpec names an adaptive router over a real multipath set,
 or that carry erasure coding.  Specs with a RelSpec on an inter group, or
-with faults, raise until those slices are ported; the shard planner is not
-part of this slice.
+with faults, raise until those slices are ported.  The shard planner
+(`ShardPlan`, `plan_shards`), which groups flows by home link and
+relabels links so each shard owns a contiguous private range, lives here
+too.
 """
 from __future__ import annotations
 

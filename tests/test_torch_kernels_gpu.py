@@ -1,5 +1,6 @@
-"""K2 (the fleet link -> flow gathers) and K5 (the UnoRC dequant) on the
-card, against their plain versions, bitwise.
+"""K2 (the fleet link -> flow gathers), K3 (the UnoRC GF(2^8) product)
+and K5 (the UnoRC dequant) on the card, against their plain versions,
+bitwise.
 
 This file imports no JAX, so that it runs on the machine with the card:
 
@@ -7,10 +8,11 @@ This file imports no JAX, so that it runs on the machine with the card:
 
 Every test is marked `gpu` and skips without a CUDA device.  K2 is held
 at unrolled hop counts and on the runtime loop, over a link table small
-enough for L1 and one that lives in L2; K5 at block counts on either
+enough for L1 and one that lives in L2; K3 at every M and K from 1 to
+16, on its 16-byte path and its byte path; K5 at block counts on either
 side of its per-warp span, both uses.  The CPU tests
-(test_torch_gathers.py, test_torch_unorc.py) hold the plain versions
-against the JAX reference.
+(test_torch_gathers.py, test_torch_unorc.py, test_torch_gf.py) hold the
+plain versions, and K3's arithmetic, against the JAX reference.
 """
 from __future__ import annotations
 
@@ -93,3 +95,48 @@ def test_dequant_matches_plain_version_on_card(dev, n_blocks):
     fused = _no_sync(lambda: unorc_cuda.dequant_int8(q, s, acc))
     assert torch.equal(plain, TK.dequant_int8_ref(q, s))
     assert torch.equal(fused, TK.dequant_int8_ref(q, s, acc=acc))
+
+
+def _gf_coeffs(rng, m, k):
+    c = rng.integers(0, 256, (m, k))
+    c[rng.random((m, k)) < 0.2] = 0
+    return tuple(map(tuple, c.tolist()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 2, 7, 8, 9, 16])
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+def test_gf_matmul_matches_plain_version_on_card(dev, m, k):
+    """K3 bitwise equal to the plain version at every M and at K around
+    the path's 8: on the 16-byte path (three groups, 4,097 columns), and
+    on the byte path, at a width = 5 (mod 16) and on a view one byte past
+    an aligned buffer; two runs equal; no host sync; one launch each."""
+    rng = np.random.default_rng(10 * m + k)
+    coeffs = _gf_coeffs(rng, m, k)
+    start = unorc_cuda.LAUNCHES["gf_matmul/encode"]
+    for width in (16 * 4097, 16 * 64 + 5):
+        x = torch.from_numpy(rng.integers(0, 256, (3, k, width),
+                                          dtype=np.uint8)).to(dev)
+        got = _no_sync(lambda: unorc_cuda.gf_matmul(x, coeffs))
+        assert got.shape == (3, m, width)
+        assert torch.equal(got, TK.gf_matmul_ref(coeffs, x)), width
+        assert torch.equal(unorc_cuda.gf_matmul(x, coeffs), got), width
+    buf = torch.from_numpy(rng.integers(0, 256, 2 * k * 4096 + 1,
+                                        dtype=np.uint8)).to(dev)
+    x = buf[1:].view(2, k, 4096)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 1
+    got = _no_sync(lambda: unorc_cuda.gf_matmul(x, coeffs))
+    assert torch.equal(got, TK.gf_matmul_ref(coeffs, x)), "unaligned"
+    assert unorc_cuda.LAUNCHES["gf_matmul/encode"] == start + 5
+
+
+@pytest.mark.gpu
+def test_gf_matmul_more_groups_than_the_grid_on_card(dev):
+    """K3 over 70,000 groups, more than one grid row per group allows
+    (65,535): the blocks loop over the rest, bitwise equal."""
+    rng = np.random.default_rng(70_000)
+    coeffs = _gf_coeffs(rng, 2, 8)
+    x = torch.from_numpy(rng.integers(0, 256, (70_000, 8, 32),
+                                      dtype=np.uint8)).to(dev)
+    got = _no_sync(lambda: unorc_cuda.gf_matmul(x, coeffs, use="decode"))
+    assert torch.equal(got, TK.gf_matmul_ref(coeffs, x))
