@@ -70,9 +70,32 @@ Phases, each printing one JSON line:
                bitwise equal to the plain run and to a second kernel run,
                p = 2 within the int8 bound of the float64 pod mean, p = 4
                within 5 % of it; ms per sync, payload GB/s, peak memory
-               and the DCI byte accounting.
+               and the DCI byte accounting;
+  9. dynamics — (run after phase 6) the churn, reliability and fault
+               axes at 100k flows:
+               the card's threefry2x32 bitwise against the CPU's on a
+               100,003-element draw and against its known answers; the
+               phase-6 multipath dumbbell with churn on both classes, the
+               adaptive-EC ladder on the inter flows, WAN loss, wan0 down
+               from 1 to 3 ms and a burst on wan1, 300 epochs on `cuda`
+               against `reference`, then timed from a fresh state in
+               chained `simulate` segments before, during and after wan0's
+               window (aggregate goodput of each: a transient check, the
+               window lies in the start transient); the main path's fat
+               tree with the same axes (the first border-to-border WAN
+               link down, a burst on the second), 200 epochs `pt_cuda`
+               against `pt`, then 300 timed epochs from the `pt_cuda` end
+               state and a 20-epoch profile (kernels, busy, idle; the
+               epoch's draws alone); and that fat tree on 2 stacked
+               shards, the same 300 epochs from the same state held
+               within 1e-4 of the timed single-device run with the churn
+               masks bitwise equal.  One epoch of each path under
+               `torch.cuda.set_sync_debug_mode("error")`; ms/epoch, device
+               kernels and threefry2x32 calls per epoch; the fleet
+               kernels that phases 3 and 5 held at these layouts must
+               each have launched on its dynamics path.
 
-Every path that phases 4 to 6 and 8 drive runs with the launch counts zeroed
+Every path that phases 4 to 6, 8 and 9 drive runs with the launch counts zeroed
 just before it and read just after it; each kernel record carries the
 count of the path it belongs to (`path`), and a path's kernel that was
 never launched in it fails the run.  The comparisons of phase 3 do not
@@ -122,9 +145,22 @@ SHARD_AB_EPOCHS = 300      # per turn of the psum / nbr A/B timing
 MULTI_DC = dict(k=4, n_dc=3, mesh="ring", n_flows=60_000, n_paths=4,
                 seed=1)
 MDC_WARM, MDC_MEAS = 750, 250
+# dynamics: churn (mean on / off, ns), the EC ladder of the reference's
+# adaptive-EC fault test, and the fault_sweep defaults for the bursts
+DYN_INTRA_CHURN = (50 * 14e3, 50 * 14e3)
+DYN_INTER_CHURN = (5 * 2e6, 5 * 2e6)
+DYN_LADDER = dict(ladder=((8, 1), (8, 2), (8, 4)),
+                  ladder_up=(0.008, 0.05, 1.0),
+                  ladder_down=(0.0, 0.004, 0.025))
+DYN_DOWN = (1e6, 3e6)        # first WAN link down, ns
+DYN_BURST = dict(loss_rate=2e-2, burst=0.3)
+DYN_DB_CHECK, DYN_FT_CHECK = 300, 200    # backend-agreement horizons
+DYN_FT_TIMED = 300           # timed fat-tree epochs, also the shard check
+PRNG_DRAW = 100_003
 
 RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
+DRAWS: dict = {}            # path name -> its threefry2x32 calls
 MAIN_PATH = "fat_tree:steady_state:pt_cuda"
 FLAT_PATH = "fat_tree:agree:cuda"
 DB_MP_PATH = "dumbbell_mp:uno:cuda"
@@ -193,14 +229,18 @@ def _rel_err(got, truth):
 
 def drive(path: str, fn, plain: bool = False):
     """fn() with every launch count zeroed just before it and read just
-    after it into PATHS[path]; a plain path must launch no kernel."""
+    after it into PATHS[path] (its threefry2x32 calls, plain torch, into
+    DRAWS[path]); a plain path must launch no kernel."""
     import torch
+    from repro_torch.fleetsim import prng
     from repro_torch.kernels import fleet_cuda, unorc_cuda
     fleet_cuda.reset_launches()
     unorc_cuda.reset_launches()
+    prng.reset_calls()
     out = fn()
     torch.cuda.synchronize()
     PATHS[path] = {**fleet_cuda.LAUNCHES, **unorc_cuda.LAUNCHES}
+    DRAWS[path] = prng.CALLS["threefry2x32"]
     check(not plain or not PATHS[path], f"{path} launched {PATHS[path]}")
     return out
 
@@ -448,9 +488,12 @@ def _check_state(state, goodput, n, what):
     check(tuple(goodput.shape) == (n,), f"{what}: goodput shape")
     check(bool(torch.isfinite(goodput).all()), f"{what}: goodput finite")
     for f, v in state._asdict().items():
-        if isinstance(v, torch.Tensor) and v.is_floating_point():
-            ok = torch.isfinite(v) if f != "win_delay_min" else ~torch.isnan(v)
-            check(bool(ok.all()), f"{what}: state.{f} finite")
+        sub = v._asdict().items() if hasattr(v, "_fields") else [("", v)]
+        for g, w in sub:      # the nested RelState / FaultCarry too
+            if isinstance(w, torch.Tensor) and w.is_floating_point():
+                ok = torch.isfinite(w) if f != "win_delay_min" else \
+                    ~torch.isnan(w)
+                check(bool(ok.all()), f"{what}: state.{f}{g} finite")
     rows = state.split.sum(dim=1)
     err = float(torch.max(torch.abs(rows - 1.0)))
     check(err <= 1e-5, f"{what}: split rows sum to 1 ({err})")
@@ -804,7 +847,293 @@ def sharded_phase(fs, dev, card, state, single):
              nbr_width=int(sf3.nbr.shape[2]), auto_backend=b3,
              build_s=mdc_s, **_exchange_bytes(sf3), **errs3),
          runs=runs, records=records)
-    return records
+    return records, plan
+
+
+# ------------------------------------------------------------- phase 9
+
+def dynamics_specs():
+    """The dumbbell and fat-tree specs of the dynamics paths: phase 6's
+    multipath dumbbell and the main path's fat tree with churn on both
+    classes, the EC ladder on the inter flows, the first WAN link down
+    over DYN_DOWN and a burst on the second (the border-to-border links,
+    in spec order, on the fat tree)."""
+    from repro_torch.scenarios import (ChurnSpec, FaultSpec, RelSpec,
+                                       dumbbell_scenario, fat_tree_spec)
+    churn = dict(intra_churn=ChurnSpec(*DYN_INTRA_CHURN),
+                 inter_churn=ChurnSpec(*DYN_INTER_CHURN))
+    rel = RelSpec(**DYN_LADDER)
+
+    def faults(down, burst):
+        return (FaultSpec(down, "down", t_start=DYN_DOWN[0],
+                          t_end=DYN_DOWN[1]),
+                FaultSpec(burst, "burst", **DYN_BURST))
+
+    kw = dict(DUMBBELL)
+    db = dumbbell_scenario(kw.pop("n_intra"), kw.pop("n_inter"),
+                           multipath=True, n_wan=4, wan_p_loss=1e-3,
+                           inter_rel=rel, faults=faults("wan0", "wan1"),
+                           **churn, **kw)
+    ft = fat_tree_spec(**FAT_TREE, **churn)
+    wan = [l.name for l in ft.links if l.wan]
+    check(all(n.startswith("B") and "->B" in n for n in wan[:2]),
+          f"fat tree WAN links {wan[:2]}")
+    ft = ft._replace(groups=tuple(g._replace(rel=rel) if g.inter else g
+                                  for g in ft.groups),
+                     faults=faults(wan[0], wan[1])).validate()
+    return db, ft
+
+
+def _axes(fs) -> dict:
+    return dict(is_inter=fs.is_inter, lb=fs.lb, churn=fs.churn, rel=fs.rel,
+                fault=fs.fault, seed=fs.seed)
+
+
+def prng_phase(dev) -> dict:
+    """threefry2x32 on the card: its known answers, and the draws of a
+    few seeds' second split keys (PRNG_DRAW floats each, the churn draw's
+    size) bitwise equal to the CPU's; ms and device kernels of one draw."""
+    import torch
+    from repro_torch.fleetsim import prng
+    m = 0xFFFFFFFF
+
+    def cipher(k, x):
+        t = [torch.tensor(v, dtype=torch.int64, device=dev)
+             for v in (k, [x[0]], [x[1]])]
+        return tuple(int(w) for w in prng.threefry2x32(*t))
+
+    check(cipher((0x13198a2e, 0x03707344), (0x243f6a88, 0x85a308d3))
+          == (0xc4923a9c, 0x483df7a0), "threefry test vector 1")
+    check(cipher((0, 0), (0, 0)) == (0x6b200159, 0x99ba4efe),
+          "threefry test vector 0")
+    check(cipher((m, m), (m, m)) == (0x1cb996fc, 0xbb002be7),
+          "threefry test vector ones")
+    k0 = prng.PRNGKey(0, dev)
+    check(prng.split(k0).tolist() == [[1797259609, 2579123966],
+                                      [928981903, 3453687069]], "split")
+    check(prng.fold_in(k0, 0xFA).tolist() == [2774691040, 2925814535],
+          "fold_in")
+    u4 = prng.uniform(prng.split(k0)[1], (4,)).cpu()
+    want4 = torch.tensor([0.00729382, 0.02089119, 0.5814265, 0.36183798])
+    check(bool(torch.allclose(u4, want4, rtol=1e-6, atol=0.0)), "uniform")
+    seeds = (0, 1, 2 ** 31 - 1, 2 ** 32 + 5, 2 ** 63 - 1)
+    for seed in seeds:
+        subs = [prng.split(prng.PRNGKey(seed, d))[1] for d in (dev, "cpu")]
+        draws = [prng.uniform(k, (PRNG_DRAW,)).cpu() for k in subs]
+        check(torch.equal(subs[0].cpu(), subs[1]) and
+              torch.equal(*draws), f"threefry draw of seed {seed}: card "
+              "differs from the CPU")
+    sub = prng.split(k0)[1]
+    return dict(known_answers=True, seeds=list(seeds), draw=PRNG_DRAW,
+                bitwise_equal_cpu=True,
+                uniform_ms=time_ms(lambda: prng.uniform(sub, (PRNG_DRAW,))),
+                uniform_profile=call_profile(
+                    lambda: prng.uniform(sub, (PRNG_DRAW,))),
+                split_profile=call_profile(lambda: prng.split(sub)))
+
+
+def _dyn_agreement(name, fs, state, backends, epochs):
+    """`epochs` from `state` on each backend (path
+    `<name>:agree:<backend>`): cwnd and mean goodput within BACKEND_RTOL
+    of the first backend's, churn masks, keys and fault carries equal.
+    Returns the errors and the first backend's final state."""
+    import torch
+    from repro_torch.fleetsim import simulate
+    out = {}
+    for b in backends:
+        out[b] = drive(f"{name}:agree:{b}", lambda: simulate(
+            fs.net, fs.params, n_epochs=epochs, state0=state, backend=b,
+            record=True, **_axes(fs)), plain=not b.endswith("cuda"))
+    s0, t0 = out[backends[0]]
+    errs = {}
+    for b, (st, traj) in out.items():
+        errs[b] = _agreement_errs(st.cwnd, traj.mean(dim=0), s0.cwnd,
+                                  t0.mean(dim=0))
+        check(max(errs[b].values()) <= BACKEND_RTOL,
+              f"{name}: {b} vs {backends[0]}: {errs[b]}")
+        check(torch.equal(st.active, s0.active) and
+              torch.equal(st.key, s0.key) and
+              all(torch.equal(x, y) for x, y in zip(st.fault, s0.fault)),
+              f"{name}: {b}'s churn masks or fault carry differ")
+    return errs, s0
+
+
+def _no_sync_epoch(fs, state, backend):
+    """One epoch of the dynamics step (after one warm-up epoch) under
+    `torch.cuda.set_sync_debug_mode("error")`."""
+    import torch
+    from repro_torch.fleetsim import make_step
+    ax = _axes(fs)
+    ax.pop("seed")
+    step = make_step(fs.net, fs.params, "uno", backend=backend, **ax)
+    state, _ = step(state)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return True
+
+
+def _dyn_profile(fs, state, backend, n=20):
+    """`device_profile` of the dynamics step per epoch, and of the
+    epoch's draws alone (`make_step_halves`' `draw`: the churn uniforms
+    and burst chains, threefry2x32 in plain torch, and the fault
+    modulation)."""
+    from repro_torch.fleetsim import make_step, make_step_halves
+    ax = _axes(fs)
+    ax.pop("seed")
+    step = make_step(fs.net, fs.params, "uno", backend=backend, **ax)
+    draw = make_step_halves(fs.net, fs.params, "uno", backend=backend,
+                            **ax)[0]
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0])
+
+    return device_profile(one, n), device_profile(lambda: draw(box[0]), n)
+
+
+def dynamics_phase(dev, card, records, plan):
+    """Phase 9 (module docstring).  `records`: the kernel records so far
+    (their uses on the dumbbell layout, the main path's PathTable and the
+    2-shard plan are the dynamics paths' too: each must launch there);
+    `plan`: phase 5's 2-shard plan of the fat tree."""
+    import torch
+    from repro_torch.fleetsim import shard as SH
+    from repro_torch.fleetsim import simulate, steady_state
+    from repro_torch.scenarios import to_fleetsim
+
+    t_phase = t0 = time.perf_counter()
+    db_spec, ft_spec = dynamics_specs()
+    fs_db = to_fleetsim(db_spec, device=dev)
+    fs_ft = to_fleetsim(ft_spec, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    threefry = prng_phase(dev)
+    out = dict(threefry=threefry, build_s=build_s)
+
+    # ---- dumbbell_dyn@100k on the flat kernels
+    n = fs_db.net.routes.shape[0]
+    fresh = simulate(fs_db.net, fs_db.params, n_epochs=0,
+                     **_axes(fs_db))[0]
+    db = dict(n_flows=n, n_links=fs_db.net.n_links,
+              agreement_epochs=DYN_DB_CHECK,
+              rel_err_vs_cuda=_dyn_agreement(
+                  "dumbbell_dyn", fs_db, fresh, ["cuda", "reference"],
+                  DYN_DB_CHECK)[0],
+              no_host_sync=_no_sync_epoch(fs_db, fresh, "cuda"))
+    dt = float(fs_db.net.dt)
+    e0, e1 = round(DYN_DOWN[0] / dt), round(DYN_DOWN[1] / dt)
+    spans = {"before": e0, "during": e1 - e0, "after": e1 - e0}
+    path = "dumbbell_dyn:segments:cuda"
+
+    def segments():
+        state, res = fresh, {}
+        for name, span in spans.items():
+            state, traj = simulate(fs_db.net, fs_db.params, n_epochs=span,
+                                   state0=state, backend="cuda",
+                                   record=True, **_axes(fs_db))
+            res[name] = float(traj.double().sum(dim=1).mean())
+        return state, res, traj.mean(dim=0)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, agg, last = drive(path, segments)
+    wall = time.perf_counter() - t0
+    epochs = sum(spans.values())
+    _check_state(state, last, n, path)
+    check(all(v > 0.0 for v in agg.values()), f"{path}: {agg}")
+    step_prof, draw_prof = _dyn_profile(fs_db, state, "cuda")
+    # from a line-rate start with a 2 ms inter RTT all three segments
+    # lie in the start transient: the aggregates show the run is live,
+    # not what the fault costs
+    db.update(segments_epochs=spans, segments_in_start_transient=True,
+              aggregate_goodput_bytes_per_ns=agg,
+              ms_per_epoch=wall / epochs * 1e3,
+              flow_epochs_per_s=n * epochs / wall,
+              launches_per_epoch={k: v / epochs
+                                  for k, v in PATHS[path].items()},
+              threefry_calls_per_epoch=DRAWS[path] / epochs,
+              rungs=torch.bincount(state.rel.rung.long()).tolist(),
+              active_share=float(state.active.float().mean()),
+              profile=step_prof, draws_profile=draw_prof)
+    out["dumbbell_dyn"] = db
+    del fresh, state
+
+    # ---- fat_tree_dyn@100k on the PathTable kernels
+    n = fs_ft.net.routes.shape[0]
+    fresh = simulate(fs_ft.net, fs_ft.params, n_epochs=0,
+                     **_axes(fs_ft))[0]
+    errs, start = _dyn_agreement("fat_tree_dyn", fs_ft, fresh,
+                                 ["pt_cuda", "pt"], DYN_FT_CHECK)
+    ft = dict(n_flows=n, n_links=fs_ft.net.n_links,
+              agreement_epochs=DYN_FT_CHECK, rel_err_vs_pt_cuda=errs,
+              no_host_sync=_no_sync_epoch(fs_ft, fresh, "pt_cuda"))
+    del fresh
+    # the timed run is also the single-device run the shards are held to
+    path = "fat_tree_dyn:steady_state:pt_cuda"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = drive(path, lambda: steady_state(
+        fs_ft.net, fs_ft.params, n_warm=0, n_meas=DYN_FT_TIMED,
+        state0=start, backend="pt_cuda", **_axes(fs_ft)))
+    wall = time.perf_counter() - t0
+    state, goodput = single
+    _check_state(state, goodput, n, path)
+    step_prof, draw_prof = _dyn_profile(fs_ft, state, "pt_cuda")
+    ft.update(epochs=DYN_FT_TIMED, ms_per_epoch=wall / DYN_FT_TIMED * 1e3,
+              flow_epochs_per_s=n * DYN_FT_TIMED / wall,
+              main_path_ms_per_epoch=RESULTS["main"]["ms_per_epoch"],
+              launches_per_epoch={k: v / DYN_FT_TIMED
+                                  for k, v in PATHS[path].items()},
+              threefry_calls_per_epoch=DRAWS[path] / DYN_FT_TIMED,
+              goodput_sum_bytes_per_ns=float(goodput.double().sum()),
+              rungs=torch.bincount(state.rel.rung.long()).tolist(),
+              active_share=float(state.active.float().mean()),
+              profile=step_prof, draws_profile=draw_prof)
+
+    # ---- fat_tree_dyn@100k:shard2, from the timed run's start state
+    t0 = time.perf_counter()
+    sf = SH.shard_scenario(fs_ft.net, fs_ft.params, n_shards=2,
+                           exchange="psum", plan=plan,
+                           link_tier=fs_ft.link_tier, link_dc=fs_ft.link_dc,
+                           **_axes(fs_ft))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    spath = shard_path("fat_tree_dyn", 2, "psum", "pt_cuda")
+    st, gp, run = _sharded_run(spath, sf, n, DYN_FT_TIMED, n_warm=0,
+                               n_meas=DYN_FT_TIMED, backend="pt_cuda",
+                               state0=start)
+    agree = _agreement_errs(st.cwnd, gp, single[0].cwnd, single[1])
+    check(max(agree.values()) <= BACKEND_RTOL,
+          f"{spath} vs single device: {agree}")
+    masks = torch.equal(st.active, single[0].active) and \
+        torch.equal(st.key, single[0].key) and \
+        all(torch.equal(x, y) for x, y in zip(st.fault, single[0].fault))
+    check(masks, f"{spath}: churn masks or fault carry differ from the "
+          "single-device run")
+    ft["shard2"] = dict(shard_scenario_s=shard_s, rel_err_vs_single=agree,
+                        churn_masks_bitwise_equal=masks,
+                        threefry_calls_per_epoch=DRAWS[spath] / DYN_FT_TIMED,
+                        **run)
+    out["fat_tree_dyn"] = ft
+
+    # the kernels phases 3 and 5 held at these layouts, on these paths
+    uses = {DB_MP_PATH: "dumbbell_dyn:segments:cuda", MAIN_PATH: path,
+            shard_path("fat_tree", 2, "psum", "pt_cuda"): spath}
+    launches = {}
+    for r in records:
+        if r["path"] in uses:
+            dyn = uses[r["path"]]
+            count = PATHS[dyn].get(r["counter"], 0)
+            check(count > 0, f"{r['name']} never launched on its dynamics "
+                  f"path {dyn}")
+            launches.setdefault(dyn, {})[r["name"]] = count
+    out.update(kernel_launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    emit("dynamics", **card, **out)
 
 
 # ------------------------------------------------------------- phase 7/8
@@ -1132,9 +1461,11 @@ def main() -> int:
 
     card = dict(device=kind, nvidia_smi=smi)
     state, single = main_path(fs, dev, spec_s, compile_s, card)
-    records += sharded_phase(fs, dev, card, state, single)
+    shard_records, plan = sharded_phase(fs, dev, card, state, single)
+    records += shard_records
     del state, single
     dumbbells(dev, card, fs_mp)
+    dynamics_phase(dev, card, records, plan)
     uno_cfg = get_config(UNO_ARCH)
     uno_records, n_patterns = unorc_kernel_phase(dev, uno_cfg)
     emit("unorc_kernels", records=uno_records, erasure_patterns=n_patterns)
@@ -1145,6 +1476,7 @@ def main() -> int:
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "
               f"path {rec['path']}")
     RESULTS["launches"] = PATHS
+    RESULTS["threefry_calls"] = DRAWS
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(RESULTS, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

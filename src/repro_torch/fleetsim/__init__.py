@@ -1,21 +1,33 @@
-"""Fluid-model fleet simulator: the steady state on one device, and the
+"""Fluid-model fleet simulator: the steady state on one device, the
+dynamics axes (churn on the threefry PRNG of `prng`, the reliability
+machine of `reliability`, the fault schedule of `faults`), and the
 locality-sharded flow axis (`shard`)."""
 from repro_torch.fleetsim.carry import scenario_from_arrays, state_from_arrays
 from repro_torch.fleetsim.cc import (SCHEMES, make_step, make_step_halves,
                                      simulate, steady_state,
                                      steady_state_core, update_split)
+from repro_torch.fleetsim.faults import (FaultCarry, FaultSchedule,
+                                         apply_modulation, degrade_split,
+                                         fault_modulation, init_fault_carry,
+                                         make_schedule)
 from repro_torch.fleetsim.links import (LOAD_BACKENDS, FluidNet, PathTable,
                                         RouteLayout, compute_layout,
-                                        compute_path_table, halo_exchange,
-                                        link_epoch, normalize_split,
-                                        offered_load, scatter_partial,
-                                        uniform_split, with_layout)
+                                        compute_path_table, drop_prob,
+                                        halo_exchange, link_epoch,
+                                        normalize_split, offered_load,
+                                        scatter_partial, uniform_split,
+                                        with_layout)
+from repro_torch.fleetsim.reliability import (RelParams, RelState,
+                                              init_rel_state,
+                                              make_rel_params,
+                                              recovery_split)
 from repro_torch.fleetsim.shard import (ShardedFleet, ShardedStep,
                                         neighbor_halo, shard_scenario,
                                         steady_state_prepared,
                                         steady_state_sharded)
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
-                                        LbParams, init_state, make_lb_params,
+                                        LbParams, init_state,
+                                        make_churn_params, make_lb_params,
                                         make_params)
 from repro_torch.fleetsim.sweeps import fleet_sum, jain
 
@@ -23,13 +35,17 @@ __all__ = [
     "scenario_from_arrays", "state_from_arrays",
     "SCHEMES", "make_step", "make_step_halves", "simulate", "steady_state",
     "steady_state_core", "update_split",
+    "FaultCarry", "FaultSchedule", "apply_modulation", "degrade_split",
+    "fault_modulation", "init_fault_carry", "make_schedule",
     "LOAD_BACKENDS", "FluidNet", "PathTable", "RouteLayout",
-    "compute_layout", "compute_path_table", "halo_exchange", "link_epoch",
-    "normalize_split", "offered_load", "scatter_partial", "uniform_split",
-    "with_layout",
+    "compute_layout", "compute_path_table", "drop_prob", "halo_exchange",
+    "link_epoch", "normalize_split", "offered_load", "scatter_partial",
+    "uniform_split", "with_layout",
+    "RelParams", "RelState", "init_rel_state", "make_rel_params",
+    "recovery_split",
     "ShardedFleet", "ShardedStep", "neighbor_halo", "shard_scenario",
     "steady_state_prepared", "steady_state_sharded",
     "ChurnParams", "FleetParams", "FleetState", "LbParams", "init_state",
-    "make_lb_params", "make_params",
+    "make_churn_params", "make_lb_params", "make_params",
     "fleet_sum", "jain",
 ]

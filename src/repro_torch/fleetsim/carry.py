@@ -4,15 +4,20 @@
 of numpy arrays named as the reference's scenario bundles name them:
 ``net_<FluidNet field>``, ``lay_<RouteLayout field>``,
 ``lay_pt_<PathTable field>``, ``par_<FleetParams field>``,
-``lb_<LbParams field>``, ``churn_<ChurnParams field>``, ``is_inter``,
+``lb_<LbParams field>``, ``churn_<ChurnParams field>``,
+``rel_<RelParams field>``, ``fault_<FaultSchedule field>``, ``is_inter``,
 ``link_tier``, ``link_dc`` and the ``__meta__`` JSON (for the seed).  An
 open ``.npz`` bundle of the reference's sweep service therefore loads
 unchanged, as does a reference `FleetScenario` flattened with
-``np.asarray``.
-`state_from_arrays` does the same for a `FleetState`, one array per field.
-Keys of fields the port does not hold (the reference layout's
-``lay_hop_mask``, ``lay_sort_link``, ``lay_csr_gather``) are ignored;
-families of slices not ported yet (``rel_*``, ``fault_*``) raise.
+``np.asarray``.  Keys of fields the port does not hold (the reference
+layout's ``lay_hop_mask``, ``lay_sort_link``, ``lay_csr_gather``) are
+ignored.
+
+`state_from_arrays` does the same for a `FleetState`, taken mid-run:
+``<prefix><field>`` per flat field, the churn key as its two uint32 words
+(held as int64 by the port), and the nested carries as
+``<prefix>rel_<RelState field>`` and ``<prefix>fault_<FaultCarry
+field>``.
 """
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.fleetsim.faults import FaultCarry, FaultSchedule
 from repro_torch.fleetsim.links import FluidNet, PathTable, RouteLayout
+from repro_torch.fleetsim.reliability import RelParams, RelState
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
                                         LbParams)
 
@@ -34,6 +41,13 @@ def _keys(arrays: Mapping) -> list:
     return list(arrays.files if hasattr(arrays, "files") else arrays.keys())
 
 
+def _tensor(a, dev) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype == np.uint32:          # PRNG key words: int64 in the port
+        a = a.astype(np.int64)
+    return torch.as_tensor(a, device=dev)
+
+
 def _family(arrays, prefix: str, cls, dev, keys):
     if not any(k.startswith(prefix) for k in keys):
         return None
@@ -41,7 +55,7 @@ def _family(arrays, prefix: str, cls, dev, keys):
     for f in cls._fields:
         k = prefix + f
         if k in keys:
-            vals[f] = torch.as_tensor(np.array(arrays[k]), device=dev)
+            vals[f] = _tensor(arrays[k], dev)
         elif cls._field_defaults.get(f, 0) is None:
             vals[f] = None
         else:
@@ -56,10 +70,6 @@ def scenario_from_arrays(arrays: Mapping, device=None):
     from repro_torch.scenarios.compile_fleetsim import FleetScenario
     dev = resolve_device(device)
     keys = _keys(arrays)
-    for prefix in ("rel_", "fault_"):
-        if any(k.startswith(prefix) for k in keys):
-            raise NotImplementedError(
-                f"{prefix.rstrip('_')} arrays belong to a slice not ported")
     pt = _family(arrays, "lay_pt_", PathTable, dev, keys)
     lay_keys = [k for k in keys if not k.startswith("lay_pt_")]
     layout = _family(arrays, "lay_", RouteLayout, dev, lay_keys)
@@ -85,22 +95,26 @@ def scenario_from_arrays(arrays: Mapping, device=None):
         link_tier=(np.asarray(arrays["link_tier"])
                    if "link_tier" in keys else None),
         link_dc=(np.asarray(arrays["link_dc"])
-                 if "link_dc" in keys else None))
+                 if "link_dc" in keys else None),
+        rel=_family(arrays, "rel_", RelParams, dev, keys),
+        fault=_family(arrays, "fault_", FaultSchedule, dev, keys))
 
 
 def state_from_arrays(arrays: Mapping, device=None,
                       prefix: str = "") -> FleetState:
-    """A FleetState from numpy arrays named `<prefix><field>`.  The PRNG
-    key is dropped (churn is not ported); rel / fault arrays raise."""
+    """A FleetState from numpy arrays named `<prefix><field>` (nested
+    carries `<prefix>rel_*` / `<prefix>fault_*`; absent ones are None)."""
     dev = resolve_device(device)
     keys = _keys(arrays)
     vals = {}
     for f in FleetState._fields:
         k = prefix + f
-        if f in ("key", "rel", "fault"):
-            if f != "key" and any(x.startswith(k) for x in keys):
-                raise NotImplementedError(f"{f} carry is not ported yet")
+        if f == "rel":
+            vals[f] = _family(arrays, k + "_", RelState, dev, keys)
+        elif f == "fault":
+            vals[f] = _family(arrays, k + "_", FaultCarry, dev, keys)
+        elif f == "key" and k not in keys:
             vals[f] = None
-            continue
-        vals[f] = torch.as_tensor(np.array(arrays[k]), device=dev)
+        else:
+            vals[f] = _tensor(arrays[k], dev)
     return FleetState(**vals)

@@ -7,34 +7,97 @@ feedback-lagged observations -> window accumulators -> the scheme's window
 reaction (Alg 1 for UnoCC with fast increase, Quick-Adapt and gentle MD;
 the DCTCP / Gemini baselines) -> the `lb` axis split update.
 
+Three optional axes ride on the step, each absent from it when None:
+
+  * churn (`ChurnParams`): open-loop on/off masks with geometric per-epoch
+    transitions drawn from the threefry key in the state (`prng`); an OFF
+    flow sends nothing and its controller state is frozen, an OFF->ON
+    flow restarts fresh (`_merge_flow_state`);
+  * reliability (`reliability.RelParams`): the overflow loss signal
+    (`links.link_physics(with_loss=True)`), the EC recovery split, the
+    NACK machine and its retransmit backlog on the wire, a loss-driven
+    window cut, and goodput from the dynamic EC split (`rel.ec_eff`
+    supersedes `lb.ec_eff`);
+  * faults (`faults.FaultSchedule`): each epoch's capacity and burst-loss
+    modulation of the net, and the send split drained from dead paths
+    (the stored split is kept, so a repair resumes the old weights).
+
 The epoch is cut at the only point where flows meet across a sharded flow
-axis, the offered load: `make_step_halves` returns a send half (rates and
-this shard's partial load, `links.scatter_partial`) and a receive half
-(queue step, marks, gathers, the CC and LB updates, from the exchanged
-loads).  `make_step` composes the two with no exchange; the sharded
-runners of `repro_torch.fleetsim.shard` put the halo exchange between
-them.  `steady_state_core` is the warm-up + measurement loop both share.
+axis, the offered load.  `make_step_halves` returns three parts: `draw`,
+what the epoch draws once for every shard (the fault modulation, which
+advances the fault carry, and the churn uniforms); a send half (the
+epoch's net and split, rates and this shard's partial load,
+`links.scatter_partial`); and a receive half (queue step, marks, gathers,
+the CC, reliability, LB and churn updates, from the exchanged loads and
+what the send half computed).  `make_step` composes them with no
+exchange; the sharded runners of `repro_torch.fleetsim.shard` put the
+halo exchange between the halves and share one `draw` per epoch.
+`steady_state_core` is the warm-up + measurement loop both share.
 
 `lax.scan` becomes a Python loop over epochs.  The step branches only on
-Python-level configuration (scheme, `lb is None`, single-path) and makes
-no host synchronisation (no `.item()`, no tensor in Python control flow),
-so it stays capturable as a CUDA graph.  Churn, the reliability axis and
-fault injection raise until their slices are ported.
+Python-level configuration (scheme, which axes are present, single-path)
+and makes no host synchronisation (no `.item()`, no tensor in Python
+control flow), so it stays capturable as a CUDA graph.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.unocc import gentle_md_scale, md_ecn_gain, md_factor
+from repro_torch.fleetsim import faults as F
 from repro_torch.fleetsim import links as L
-from repro_torch.fleetsim.state import (FleetParams, FleetState, LbParams,
-                                        init_state)
+from repro_torch.fleetsim import prng
+from repro_torch.fleetsim import reliability as R
+from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
+                                        LbParams, init_state)
 
 SCHEMES = ("uno", "gemini", "dctcp")
 _FRAC_EPS = 1e-6
+# state the churn merge does not select per flow: the link queues, the
+# PRNG key, the replicated fault carry and the active mask (set each epoch)
+_NON_FLOW_FIELDS = ("q_phys", "q_phantom", "key", "active", "fault")
+
+
+class EpochDraws(NamedTuple):
+    """What one epoch draws once for every shard."""
+    cap_scale: Optional[torch.Tensor]   # (n_links,) capacity multiplier
+    p_extra: Optional[torch.Tensor]     # (n_links,) burst loss probability
+    fault: Optional[F.FaultCarry]       # the fault carry after this epoch
+    key: Optional[torch.Tensor]         # the churn key after this epoch
+    u: Optional[torch.Tensor]           # (churn_n,) churn uniforms
+
+
+class Sent(NamedTuple):
+    """What the send half hands the receive half."""
+    wire: torch.Tensor                  # rate + retransmit rate
+    rate: torch.Tensor                  # the CC send rate
+    rtx: Optional[torch.Tensor]         # retransmit rate (with rel)
+    split: torch.Tensor                 # this epoch's send split
+    net: L.FluidNet                     # this epoch's (modulated) net
+    draws: EpochDraws
+
+
+def _merge_flow_state(cond: torch.Tensor, a: FleetState,
+                      b: FleetState) -> FleetState:
+    """Per-flow fields from `a` where `cond` ((n_flows,) bool) else `b`;
+    the fields of `_NON_FLOW_FIELDS` pass through from `a`.  Iterating
+    FleetState._fields (and the nested RelState's) keeps the churn
+    freeze / restart exhaustive."""
+    out = {}
+    for f in FleetState._fields:
+        av = getattr(a, f)
+        if f in _NON_FLOW_FIELDS or av is None:
+            out[f] = av
+        elif hasattr(av, "_fields"):    # nested per-flow carry (RelState)
+            out[f] = type(av)(*(torch.where(cond, x, y)
+                                for x, y in zip(av, getattr(b, f))))
+        else:
+            c = cond if av.dim() == 1 else cond[:, None]
+            out[f] = torch.where(c, av, getattr(b, f))
+    return FleetState(**out)
 
 
 def update_split(split: torch.Tensor, path_frac: torch.Tensor,
@@ -52,21 +115,25 @@ def update_split(split: torch.Tensor, path_frac: torch.Tensor,
 
 def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
               is_inter: Optional[torch.Tensor] = None,
-              lb: Optional[LbParams] = None, churn=None, rel=None,
-              fault=None, *, backend: str = "auto"):
+              lb: Optional[LbParams] = None,
+              churn: Optional[ChurnParams] = None,
+              rel: Optional[R.RelParams] = None,
+              fault: Optional[F.FaultSchedule] = None, *,
+              backend: str = "auto"):
     """Build the per-epoch transition: state -> (state', goodput).
 
     `lb=None` freezes the split at its initial value (static spraying)
-    and reports raw goodput.  `backend` picks the link-aggregation path
+    and reports raw goodput; `churn`, `rel` and `fault` switch on their
+    axes (module docstring).  `backend` picks the link-aggregation path
     (links.LOAD_BACKENDS); it is resolved once, here.
     """
-    send, recv = make_step_halves(net, params, scheme, is_inter, lb=lb,
-                                  churn=churn, rel=rel, fault=fault,
-                                  backend=backend)
+    draw, send, recv = make_step_halves(net, params, scheme, is_inter,
+                                        lb=lb, churn=churn, rel=rel,
+                                        fault=fault, backend=backend)
 
     def step(state: FleetState):
-        wire, private, tile = send(state)
-        return recv(state, wire, L.assemble_load(private, tile, net.n_links))
+        sent, private, tile = send(state, draw(state))
+        return recv(state, sent, L.assemble_load(private, tile, net.n_links))
 
     return step
 
@@ -74,39 +141,79 @@ def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
 def make_step_halves(net: L.FluidNet, params: FleetParams,
                      scheme: str = "uno",
                      is_inter: Optional[torch.Tensor] = None,
-                     lb: Optional[LbParams] = None, churn=None, rel=None,
-                     fault=None, *, backend: str = "auto",
-                     halo: Optional[int] = None):
-    """The epoch cut at the halo exchange, as `(send, recv)`.
+                     lb: Optional[LbParams] = None,
+                     churn: Optional[ChurnParams] = None,
+                     rel: Optional[R.RelParams] = None,
+                     fault: Optional[F.FaultSchedule] = None, *,
+                     backend: str = "auto", halo: Optional[int] = None,
+                     churn_map: Optional[torch.Tensor] = None,
+                     churn_n: Optional[int] = None):
+    """The epoch cut at the halo exchange, as `(draw, send, recv)`.
 
-    `send(state, out=None) -> (wire, private, tile)`: the send rates and
-    this shard's partial offered load (`links.scatter_partial` with
-    `halo`; `out` receives the tile).  `recv(state, wire, load) ->
-    (state', goodput)`: everything after the exchange, from the (n_links,)
-    loads.  Arguments as `make_step`.
+    `draw(state) -> EpochDraws`: the epoch's fault modulation (advancing
+    the fault carry) and churn uniforms, drawn once for all shards.
+    `send(state, draws, out=None) -> (sent, private, tile)`: the epoch's
+    net and send split, the send rates and this shard's partial offered
+    load (`links.scatter_partial` with `halo`; `out` receives the tile).
+    `recv(state, sent, load) -> (state', goodput)`: everything after the
+    exchange, from the (n_links,) loads.  `churn_map` / `churn_n` make
+    churn exact under flow sharding: `draw` makes the GLOBAL (churn_n,)
+    uniform vector and each row reads the entry of its original flow id
+    (`churn_map`, int32).  Other arguments as `make_step`.
     """
     if scheme not in SCHEMES:
         raise ValueError(f"unknown fleetsim scheme {scheme!r}")
-    L.not_yet(churn=churn, rel=rel, fault=fault)
+    if churn_map is not None and churn_n is None:
+        raise ValueError("churn_map needs churn_n (the global flow count)")
     if is_inter is None:
         is_inter = torch.zeros_like(params.bdp, dtype=torch.bool)
     pmask = L.path_mask(net)
     single = net.n_paths == 1
     backend = L._resolve_backend(net, backend)
     fb = torch.clamp(net.dt / params.rtt, max=1.0)
+    n_draw = params.bdp.shape[0] if churn_map is None else churn_n
+    fresh = p_off = p_on = None
+    if churn is not None:
+        # the OFF->ON restart target: a fresh flow as init_state starts it
+        fresh = init_state(params, net.n_links, n_paths=net.n_paths,
+                           split0=L.uniform_split(net), rel=rel)
+        p_off = torch.clamp(net.dt / torch.clamp(churn.mean_on, min=1.0),
+                            0.0, 1.0)
+        p_on = torch.clamp(net.dt / torch.clamp(churn.mean_off, min=1.0),
+                           0.0, 1.0)
 
-    def send(state: FleetState, out: Optional[torch.Tensor] = None):
-        wire = state.active.to(torch.float32) * state.cwnd / params.rtt
-        return (wire,) + L.scatter_partial(net, wire, state.split,
-                                           backend=backend, halo=halo,
-                                           out=out)
+    def draw(state: FleetState) -> EpochDraws:
+        cap_scale = p_extra = carry = key = u = None
+        if fault is not None:
+            cap_scale, p_extra, carry = F.fault_modulation(
+                fault, state.fault, net.n_links)
+        if churn is not None:
+            key, sub = prng.split(state.key)
+            u = prng.uniform(sub, (n_draw,))
+        return EpochDraws(cap_scale, p_extra, carry, key, u)
 
-    def recv(state: FleetState, wire: torch.Tensor, load: torch.Tensor):
+    def send(state: FleetState, draws: EpochDraws,
+             out: Optional[torch.Tensor] = None):
+        net_e, split = net, state.split
+        if fault is not None:
+            net_e = F.apply_modulation(net, draws.cap_scale, draws.p_extra)
+            if draws.cap_scale is not None and not single:
+                split = F.degrade_split(net, split, draws.cap_scale, pmask)
+        rate = state.active.to(torch.float32) * state.cwnd / params.rtt
+        rtx, wire = None, rate
+        if rel is not None:   # the retransmit backlog is real wire traffic
+            rtx = R.rtx_rate(rel, state.rel, rate, params.rtt)
+            wire = rate + rtx
+        private, tile = L.scatter_partial(net, wire, split, backend=backend,
+                                          halo=halo, out=out)
+        return Sent(wire, rate, rtx, split, net_e, draws), private, tile
+
+    def recv(state: FleetState, sent: Sent, load: torch.Tensor):
         p = params
-        split = state.split
+        split, wire, rtx = sent.split, sent.wire, sent.rtx
         # ---- network: queues, marks, delays -----------------------------
-        le = L.link_physics(net, load, state.q_phys, state.q_phantom,
-                            backend=backend)
+        le = L.link_physics(sent.net, load, state.q_phys, state.q_phantom,
+                            backend=backend, with_loss=rel is not None)
         sub_frac = le.sub_frac
         if single:   # split-weighted sums collapse to one product per flow
             s1 = split[:, 0]
@@ -118,6 +225,12 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
             inst_frac = torch.sum(split * sub_frac, dim=1)
             inst_delay = torch.sum(split * le.sub_delay, dim=1)
         goodput = wire * sc
+        rel_new, nack_fire, recovered = state.rel, None, None
+        if rel is not None:
+            lf = s1 * le.sub_loss[:, 0] if single else \
+                torch.sum(split * le.sub_loss, dim=1)
+            rel_new, nack_fire, recovered = R.rel_epoch(
+                rel, state.rel, sent.rate, rtx, wire, lf, net.dt, p.rtt)
         # feedback lag: first-order filter with time constant = flow RTT
         frac = state.obs_frac + fb * (inst_frac - state.obs_frac)
         delay = state.obs_delay + fb * (inst_delay - state.obs_delay)
@@ -232,14 +345,29 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
             qa_prev = torch.where(tick, qa_acked, qa_prev)
             qa_acked = torch.where(tick, 0.0, qa_acked)
             qa_countdown = torch.where(tick, p.qa_period, qa_countdown)
+
+        # ---- reliability: NACK-driven multiplicative decrease -----------
+        # (at most one cut per flow RTT; the post-QA skip suppresses it)
+        if rel is not None:
+            cwnd = torch.where(nack_fire & can_md,
+                               torch.maximum(cwnd * rel.loss_md, p.min_cwnd),
+                               cwnd)
         cwnd = torch.minimum(torch.maximum(cwnd, p.min_cwnd), p.max_cwnd)
 
         # ---- lb axis: adaptive subflow weights --------------------------
+        # the STORED split adapts from this epoch's (degraded) send split
+        # with lb, and stays put without it
         split_new, bad_count = state.split, state.bad_count
         if lb is not None:
             split_new, bad_count = update_split(split, path_frac, bad_count,
                                                 pmask, lb)
-            goodput = goodput * lb.ec_eff   # parity bytes carry no payload
+            if rel is None:
+                goodput = goodput * lb.ec_eff   # parity carries no payload
+        if rel is not None:
+            # the dynamic EC split at the flow's current rung: delivered
+            # payload, retransmitted data (no parity), parity-recovered data
+            eff = R.effective_eff(rel, state.rel)
+            goodput = goodput * eff + rtx * sc * (1.0 - eff) + recovered
 
         new = FleetState(
             cwnd=cwnd, ecn_ewma=ecn_ewma, md_scale=md_scale,
@@ -252,28 +380,47 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
             qa_deficits=qa_deficits, qa_countdown=qa_countdown, skip=skip,
             fi_clean=fi_clean, fi_active=fi_active, fi_ceiling=fi_ceiling,
             split=split_new, path_frac=path_frac, bad_count=bad_count,
-            active=state.active, key=state.key, rel=state.rel,
-            fault=state.fault)
+            active=state.active, key=state.key, rel=rel_new,
+            fault=state.fault if fault is None else sent.draws.fault)
+
+        # ---- churn: freeze OFF flows, restart fresh on OFF->ON ----------
+        if churn is not None:
+            act = state.active
+            u = sent.draws.u if churn_map is None else \
+                torch.index_select(sent.draws.u, 0, churn_map)
+            turn_off = act & churn.churned & (u < p_off)
+            turn_on = ~act & churn.churned & (u < p_on)
+            new = _merge_flow_state(act, new, state)       # OFF: frozen
+            new = _merge_flow_state(~turn_on, new, fresh)  # OFF->ON: fresh
+            new = new._replace(active=(act & ~turn_off) | turn_on,
+                               key=sent.draws.key)
         return new, goodput
 
-    return send, recv
+    return draw, send, recv
 
 
-def _default_state(net: L.FluidNet, params: FleetParams) -> FleetState:
+def _default_state(net: L.FluidNet, params: FleetParams, seed: int = 0,
+                   rel=None, fault=None) -> FleetState:
     return init_state(params, net.n_links, n_paths=net.n_paths,
-                      split0=L.uniform_split(net))
+                      split0=L.uniform_split(net), seed=seed, rel=rel,
+                      fault=fault)
 
 
 def simulate(net: L.FluidNet, params: FleetParams, *, n_epochs: int,
              scheme: str = "uno", state0: Optional[FleetState] = None,
              is_inter: Optional[torch.Tensor] = None,
-             lb: Optional[LbParams] = None, churn=None, rel=None,
-             fault=None, record: bool = False, backend: str = "auto"):
+             lb: Optional[LbParams] = None,
+             churn: Optional[ChurnParams] = None,
+             rel: Optional[R.RelParams] = None,
+             fault: Optional[F.FaultSchedule] = None, seed: int = 0,
+             record: bool = False, backend: str = "auto"):
     """Run `n_epochs` epochs; returns (final_state, goodput_trajectory),
-    the trajectory (n_epochs, n_flows) bytes/ns when `record`, else None."""
+    the trajectory (n_epochs, n_flows) bytes/ns when `record`, else None.
+    `seed` seeds the churn key and the fault chains of a fresh state."""
     step = make_step(net, params, scheme, is_inter, lb=lb, churn=churn,
                      rel=rel, fault=fault, backend=backend)
-    state = _default_state(net, params) if state0 is None else state0
+    state = _default_state(net, params, seed, rel, fault) \
+        if state0 is None else state0
     traj = [] if record else None
     for _ in range(n_epochs):
         state, goodput = step(state)
@@ -286,14 +433,18 @@ def steady_state(net: L.FluidNet, params: FleetParams, *, n_warm: int,
                  n_meas: int, scheme: str = "uno",
                  state0: Optional[FleetState] = None,
                  is_inter: Optional[torch.Tensor] = None,
-                 lb: Optional[LbParams] = None, churn=None, rel=None,
-                 fault=None, backend: str = "auto"):
+                 lb: Optional[LbParams] = None,
+                 churn: Optional[ChurnParams] = None,
+                 rel: Optional[R.RelParams] = None,
+                 fault: Optional[F.FaultSchedule] = None, seed: int = 0,
+                 backend: str = "auto"):
     """Warm up for `n_warm` epochs, then return (final_state, mean goodput
     over `n_meas` epochs), accumulating a running sum instead of a
-    trajectory."""
+    trajectory.  `seed` as `simulate`."""
     step = make_step(net, params, scheme, is_inter, lb=lb, churn=churn,
                      rel=rel, fault=fault, backend=backend)
-    state = _default_state(net, params) if state0 is None else state0
+    state = _default_state(net, params, seed, rel, fault) \
+        if state0 is None else state0
     return steady_state_core(step, state, n_warm=n_warm, n_meas=n_meas,
                              acc=torch.zeros_like(params.bdp))
 

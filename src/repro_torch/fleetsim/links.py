@@ -133,6 +133,8 @@ class LinkEpoch(NamedTuple):
     sub_scale: torch.Tensor   # (n, p) min over hops of cap/load
     sub_frac: torch.Tensor    # (n, p) 1 - prod(1 - p) over hops
     sub_delay: torch.Tensor   # (n, p) sum of q/cap over hops (ns)
+    p_drop: Optional[torch.Tensor] = None    # (n_links,) overflow + p_loss
+    sub_loss: Optional[torch.Tensor] = None  # (n, p) composed loss fraction
 
 
 def _np(x) -> np.ndarray:
@@ -375,13 +377,6 @@ def _resolve_backend(net: FluidNet, backend: str) -> str:
     return backend
 
 
-def not_yet(**kw):
-    """Raise for arguments that belong to slices not ported yet."""
-    for name, val in kw.items():
-        if val is not None and val is not False:
-            raise NotImplementedError(f"{name}= is not ported yet")
-
-
 def _full_buffer(net: FluidNet, rates, split, backend: str, out=None):
     """(n_links + 1,) offered-load buffer, written into `out` if given.
     Real links are the contract; the scratch slot is backend-specific."""
@@ -558,31 +553,54 @@ def mark_prob(net: FluidNet, q_phys: torch.Tensor,
                        0.0, 1.0)
 
 
+def drop_prob(net: FluidNet, q_phys_prev: torch.Tensor,
+              load: torch.Tensor) -> torch.Tensor:
+    """(n_links,) per-byte drop probability from physical-queue overflow:
+    the pre-clip excess of `step_queues` over the bytes that arrived,
+    max(q + (load - cap) dt - qcap, 0) / (load dt), clipped to [0, 1];
+    exactly 0.0 while the queue stays within capacity."""
+    over = q_phys_prev + (load - net.cap) * net.dt - net.qcap
+    return torch.clamp(torch.clamp(over, min=0.0) /
+                       torch.clamp(load * net.dt, min=_EPS), 0.0, 1.0)
+
+
+def take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] along dim 0 for an int32 index tensor of any shape (no
+    int64 copy of the indices)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
+
+
 def subflow_loss_frac(net: FluidNet, p_drop: torch.Tensor) -> torch.Tensor:
     """(n, p) loss fraction: 1 - prod over hops of (1 - p_drop)."""
     keep = kref.append_identity(1.0 - p_drop, 1.0)
-    return 1.0 - torch.prod(keep[_pad_idx(net).long()], dim=2)
+    return 1.0 - torch.prod(take(keep, _pad_idx(net)), dim=2)
 
 
 def _pt_loss_frac(net: FluidNet, p_drop: torch.Tensor) -> torch.Tensor:
     """`subflow_loss_frac` through the PathTable."""
     pt = net.layout.path_table
     keep = kref.append_identity(1.0 - p_drop, 1.0)
-    seg_keep = torch.prod(keep[pt.seg_idx.long()], dim=1)
+    seg_keep = torch.prod(take(keep, pt.seg_idx), dim=1)
     return 1.0 - kref.compose_clean(pt.pre_id, pt.suf_id, seg_keep)
 
 
 def link_physics(net: FluidNet, load: torch.Tensor, q_phys: torch.Tensor,
-                 q_phantom: torch.Tensor, *, backend: str = "auto"
-                 ) -> LinkEpoch:
+                 q_phantom: torch.Tensor, *, backend: str = "auto",
+                 with_loss: bool = False) -> LinkEpoch:
     """The receive half of an epoch of link physics: from the (exchanged)
     loads, the queue step, the mark probabilities and the three link ->
     flow gathers.
 
     A net with `p_loss` thins `sub_scale` by each subflow's survival
-    through its lossy hops.
+    through its lossy hops.  `with_loss` also gives the reliability
+    axis's loss signal: `p_drop` from the PRE-step queues (`drop_prob`,
+    with `p_loss` folded in as an independent stage) and its composition
+    per subflow, `sub_loss` (a plain gather on every backend, through the
+    PathTable where the backend uses one).
     """
     rb = _resolve_backend(net, backend)
+    p_drop = drop_prob(net, q_phys, load) if with_loss else None
     q_phys, q_phantom = step_queues(net, q_phys, q_phantom, load)
     p_link = mark_prob(net, q_phys, q_phantom)
     compressed = rb in ("pt", "pt_cuda")
@@ -601,12 +619,17 @@ def link_physics(net: FluidNet, load: torch.Tensor, q_phys: torch.Tensor,
         gathers = kref.fleet_link_gathers_ref(_routes3(net), scale, clean,
                                               delay)
     sub_scale, sub_frac, sub_delay = gathers
+    loss_frac = _pt_loss_frac if compressed else subflow_loss_frac
     if net.p_loss is not None:
-        loss_frac = _pt_loss_frac if compressed else subflow_loss_frac
         sub_scale = sub_scale * (1.0 - loss_frac(net, net.p_loss))
+    sub_loss = None
+    if with_loss:
+        if net.p_loss is not None:
+            p_drop = 1.0 - (1.0 - p_drop) * (1.0 - net.p_loss)
+        sub_loss = loss_frac(net, p_drop)
     return LinkEpoch(load=load, q_phys=q_phys, q_phantom=q_phantom,
                      p_link=p_link, sub_scale=sub_scale, sub_frac=sub_frac,
-                     sub_delay=sub_delay)
+                     sub_delay=sub_delay, p_drop=p_drop, sub_loss=sub_loss)
 
 
 def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
@@ -614,9 +637,8 @@ def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
                backend: str = "auto", with_loss: bool = False,
                halo: Optional[int] = None) -> LinkEpoch:
     """One epoch of link physics: `offered_load` (with `halo`, one shard's
-    own partial load) -> `link_physics`.  `with_loss` belongs to the
-    reliability slice, not ported yet, and raises."""
-    not_yet(with_loss=with_loss)
+    own partial load) -> `link_physics`, `with_loss` as there."""
     rb = _resolve_backend(net, backend)
     load = offered_load(net, rates, split, backend=rb, halo=halo)
-    return link_physics(net, load, q_phys, q_phantom, backend=rb)
+    return link_physics(net, load, q_phys, q_phantom, backend=rb,
+                        with_loss=with_loss)

@@ -34,12 +34,20 @@ that do not divide the shard count are padded per shard with inert flows
 (all hops -1: zero split, zero load, zero goodput).  A shard count, or a
 process group, takes the place of the reference's device mesh.
 
-Not ported: the churn, reliability and fault axes under sharding (their
-arguments raise NotImplementedError), and three knobs that exist only for
-JAX's compiled scan — `unroll` (epochs fused per scan step), the executable
-cache (`_compiled`, `cache_stats`, `set_executable_cache_size`) and buffer
-donation (`_unalias`): an eager Python loop has no trace to fuse, cache or
-donate into.
+The dynamics axes shard as the reference's do: the reliability params are
+permuted with the flows (padding rows disabled), the fault schedule's link
+ids are relabeled like the routes, and churn reads one GLOBAL (n_real,)
+uniform vector per epoch by each row's original flow id (`churn_map`),
+so a sharded run flips exactly the flows a single-device run flips.  The
+churn key and the fault carry are replicated: the stacked runner draws
+them once per epoch for all its shards (`cc.make_step_halves`' `draw`),
+and every rank of a process group advances its own identical copy.
+
+Not ported: three knobs that exist only for JAX's compiled scan —
+`unroll` (epochs fused per scan step), the executable cache
+(`_compiled`, `cache_stats`, `set_executable_cache_size`) and buffer
+donation (`_unalias`): an eager Python loop has no trace to fuse, cache
+or donate into.
 """
 from __future__ import annotations
 
@@ -50,11 +58,15 @@ import torch
 
 from repro_torch.fleetsim import cc as C
 from repro_torch.fleetsim import links as L
-from repro_torch.fleetsim.state import (FleetParams, FleetState, LbParams,
-                                        init_state)
+from repro_torch.fleetsim.faults import FaultSchedule
+from repro_torch.fleetsim.reliability import LADDER_SHARED, RelParams
+from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
+                                        LbParams, init_state)
 
-# FleetState fields indexed by link (the rest are per-flow, or None)
+# FleetState fields indexed by link, and those replicated on every shard
+# (the rest are per-flow, the nested RelState included, or None)
 _LINK_FIELDS = ("q_phys", "q_phantom")
+_REPLICATED = ("key", "fault")
 
 
 def _contiguous_plan(n_real: int, n_links: int, n_shards: int):
@@ -86,6 +98,11 @@ class ShardedFleet(NamedTuple):
     own: torch.Tensor             # (S, n_links) bool link-ownership masks
     nbr: Optional[torch.Tensor] = None  # (S, 2, P) int32 neighbor-exchange
     # link ids (neighbor_halo); None -> boundary psum
+    churn: Optional[ChurnParams] = None   # flow axis permuted, padding off
+    churn_map: Optional[torch.Tensor] = None  # (S, rows) int32 original
+    # flow id of each row: the entry of the global churn draw it reads
+    rel: Optional[RelParams] = None       # flow axis permuted, padding off
+    fault: Optional[FaultSchedule] = None  # link ids relabeled (old2new)
 
     @property
     def rows(self) -> int:
@@ -143,8 +160,25 @@ def _take_links(net: L.FluidNet, new2old: torch.Tensor) -> L.FluidNet:
         p_loss=None if net.p_loss is None else net.p_loss[new2old])
 
 
-def _take_rows(tup, idx: torch.Tensor):
-    return type(tup)(*(v[idx] for v in tup))
+def _take_rows(tup, idx):
+    """`tup` (None passes) with its flow axis indexed by `idx`, a tensor
+    or a slice; absent fields and the rung-indexed ladder tables of a
+    RelParams pass through."""
+    if tup is None:
+        return None
+    return type(tup)(*(v if v is None or f in LADDER_SHARED else v[idx]
+                       for f, v in tup._asdict().items()))
+
+
+def _take_rel(rel: RelParams, idx: torch.Tensor,
+              real: torch.Tensor) -> RelParams:
+    """RelParams with the flow axis gathered by `idx` and the rows not
+    `real` disabled."""
+    out = _take_rows(rel, idx)
+    out = out._replace(enabled=out.enabled & real)
+    if out.adapt_on is not None:
+        out = out._replace(adapt_on=out.adapt_on & real)
+    return out
 
 
 def shard_scenario(net: L.FluidNet, params: FleetParams, *,
@@ -160,7 +194,8 @@ def shard_scenario(net: L.FluidNet, params: FleetParams, *,
 
     `locality=False` gives the contiguous-block plan (full link buffer
     exchanged every epoch); an explicit `plan` overrides both.
-    `link_tier` / `link_dc` (FleetScenario fields) feed the planner's tier
+    `churn` / `rel` / `fault` (FleetScenario fields) shard as the module
+    docstring says.  `link_tier` / `link_dc` feed the planner's tier
     score and DC-major order, `sender_private` its first-hop rehoming
     (default: on exactly when `link_dc` is given), `seed` its draws.
 
@@ -176,7 +211,6 @@ def shard_scenario(net: L.FluidNet, params: FleetParams, *,
     the reference's stacked tables are.
     """
     from repro_torch.scenarios.compile_fleetsim import plan_shards
-    L.not_yet(churn=churn, rel=rel, fault=fault)
     if exchange not in ("auto", "psum", "nbr"):
         raise ValueError(f"unknown boundary exchange {exchange!r}")
     if group is not None:
@@ -242,7 +276,21 @@ def shard_scenario(net: L.FluidNet, params: FleetParams, *,
     if is_inter is None:
         is_inter = torch.zeros(n_real, dtype=torch.bool, device=dev)
     ii_p = is_inter[gc] & real_t
-    lb_p = None if lb is None else _take_rows(lb, gc)
+    lb_p = _take_rows(lb, gc)
+    rel_p = None if rel is None else _take_rel(rel, gc, real_t)
+    fault_p = None
+    if fault is not None:
+        # schedule link ids live in the original id space: relabel them
+        o2n = torch.as_tensor(plan.old2new, device=dev)
+        fault_p = fault._replace(
+            link=torch.index_select(o2n, 0, fault.link),
+            ge_link=torch.index_select(o2n, 0, fault.ge_link))
+    churn_p = cmap = None
+    if churn is not None:
+        churn_p = ChurnParams(churned=churn.churned[gc] & real_t,
+                              mean_on=churn.mean_on[gc],
+                              mean_off=churn.mean_off[gc])
+        cmap = gc.to(torch.int32).reshape(n_shards, rows)
 
     nbr = None
     if exchange != "psum":
@@ -270,17 +318,32 @@ def shard_scenario(net: L.FluidNet, params: FleetParams, *,
         plan=plan, n_shards=n_shards, group=group, net=net_p, layouts=lays,
         params=params_p, is_inter=ii_p, lb=lb_p,
         own=torch.as_tensor(own, device=dev),
-        nbr=None if nbr is None else torch.as_tensor(nbr, device=dev))
+        nbr=None if nbr is None else torch.as_tensor(nbr, device=dev),
+        churn=churn_p, churn_map=cmap, rel=rel_p, fault=fault_p)
+
+
+def _map_fields(state: FleetState, flow, link) -> FleetState:
+    """Apply `flow` to every per-flow tensor (the nested RelState's too)
+    and `link` to the link fields; replicated and absent fields pass
+    through."""
+    out = {}
+    for f, v in state._asdict().items():
+        if v is None or f in _REPLICATED:
+            out[f] = v
+        elif f in _LINK_FIELDS:
+            out[f] = link(v)
+        elif hasattr(v, "_fields"):
+            out[f] = type(v)(*(flow(x) for x in v))
+        else:
+            out[f] = flow(v)
+    return FleetState(**out)
 
 
 def _permute_state(state: FleetState, flow_idx: torch.Tensor,
                    link_idx: torch.Tensor) -> FleetState:
     """Reindex a FleetState: per-flow fields by `flow_idx`, link fields by
-    `link_idx`; absent (None) carries stay None."""
-    return FleetState(**{
-        f: None if v is None else v[link_idx if f in _LINK_FIELDS
-                                    else flow_idx]
-        for f, v in state._asdict().items()})
+    `link_idx`."""
+    return _map_fields(state, lambda v: v[flow_idx], lambda v: v[link_idx])
 
 
 class ShardedStep:
@@ -312,10 +375,14 @@ class ShardedStep:
             net_s = sf.shard_net(s)
             self.backends.append(L._resolve_backend(net_s, backend))
             self.halves.append(C.make_step_halves(
-                net_s, FleetParams(*(v[sl] for v in sf.params)), scheme,
-                sf.is_inter[sl], lb=None if sf.lb is None else
-                LbParams(*(v[sl] for v in sf.lb)),
-                backend=self.backends[-1], halo=halo))
+                net_s, _take_rows(sf.params, sl), scheme, sf.is_inter[sl],
+                lb=_take_rows(sf.lb, sl), churn=_take_rows(sf.churn, sl),
+                rel=_take_rows(sf.rel, sl), fault=sf.fault,
+                backend=self.backends[-1], halo=halo,
+                churn_map=None if sf.churn_map is None else sf.churn_map[s],
+                churn_n=sf.plan.n_real))
+        # the replicated draws (churn uniforms, fault carry): once an epoch
+        self.draw = self.halves[0][0]
         # the exchange buffer: one (halo + 1,) boundary tile per local
         # shard, the scratch slot last (the whole buffer at halo == nl)
         self.tiles = None
@@ -329,10 +396,8 @@ class ShardedStep:
 
     def split(self, state: FleetState) -> list:
         rows = self.sf.rows
-        return [FleetState(**{
-            f: v if v is None or f in _LINK_FIELDS
-            else v[s * rows:(s + 1) * rows]
-            for f, v in state._asdict().items()}) for s in self.local]
+        return [_map_fields(state, lambda v, s=s: v[s * rows:(s + 1) * rows],
+                            lambda v: v) for s in self.local]
 
     def zeros(self) -> torch.Tensor:
         return torch.zeros(len(self.local) * self.sf.rows,
@@ -345,17 +410,19 @@ class ShardedStep:
                                group=self.group)[None]
 
     def step(self, states: list):
-        sent = [send(st, out=None if self.tiles is None else self.tiles[i])
-                for i, ((send, _), st) in enumerate(zip(self.halves,
-                                                        states))]
+        draws = self.draw(states[0])
+        sent = [send(st, draws,
+                     out=None if self.tiles is None else self.tiles[i])
+                for i, ((_, send, _), st) in enumerate(zip(self.halves,
+                                                           states))]
         tiles = None if self.tiles is None else self._exchange()
         new, goodput = [], []
-        for i, ((_, recv), st, (wire, private, _)) in enumerate(
+        for i, ((_, _, recv), st, (sent_i, private, _)) in enumerate(
                 zip(self.halves, states, sent)):
             load = L.assemble_load(private,
                                    None if tiles is None else tiles[i],
                                    self.n_links)
-            st, g = recv(st, wire, load)
+            st, g = recv(st, sent_i, load)
             new.append(st)
             goodput.append(g)
         return new, goodput[0] if len(goodput) == 1 else torch.cat(goodput)
@@ -365,8 +432,11 @@ class ShardedStep:
         out = {}
         for f in FleetState._fields:
             vals = [getattr(st, f) for st in states]
-            if vals[0] is None:
-                out[f] = None
+            if vals[0] is None or f in _REPLICATED:
+                out[f] = vals[0]
+            elif hasattr(vals[0], "_fields"):
+                out[f] = type(vals[0])(*(self._gather(torch.cat(col))
+                                         for col in zip(*vals)))
             elif f in _LINK_FIELDS:
                 owned = torch.where(own, torch.stack(vals), 0.0).sum(dim=0)
                 if self.group is not None:
@@ -398,9 +468,14 @@ def permute_in(sf: ShardedFleet, state0: Optional[FleetState] = None, *,
     dev = net.device
     if state0 is None:
         return init_state(sf.params, net.n_links, n_paths=net.n_paths,
-                          split0=L.uniform_split(net), seed=seed)
+                          split0=L.uniform_split(net), seed=seed,
+                          rel=sf.rel, fault=sf.fault)
     if state0.cwnd.shape[0] != plan.n_real:
         raise ValueError("state0 flow count does not match the plan")
+    for f in ("rel", "fault"):
+        if (getattr(state0, f) is None) != (getattr(sf, f) is None):
+            raise ValueError(f"state0's {f} carry does not match the "
+                             f"scenario's")
     gflat = plan.flat_gather
     real = gflat < plan.n_real
     gc = torch.as_tensor(np.where(real, gflat, 0).astype(np.int64),

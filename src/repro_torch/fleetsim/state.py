@@ -4,9 +4,10 @@ NamedTuples of torch tensors.
 The port of ``repro.fleetsim.state``: field names, dtypes (float32 /
 int32 / bool) and the parameter derivations are the reference's, so a
 reference state flattened to numpy loads field for field
-(`repro_torch.fleetsim.carry`).  The PRNG `key`, the reliability carry
-`rel` and the fault carry `fault` stay None until the churn, reliability
-and fault slices are ported.
+(`repro_torch.fleetsim.carry`).  The churn PRNG `key` is a (2,) int64
+tensor (`fleetsim.prng`); `rel` holds the reliability machine's carry
+(`reliability.RelState`) and `fault` the fault carry
+(`faults.FaultCarry`) when the scenario has them, else None.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.core.unocc import UnoParams, derived_params
 from repro_torch.device import resolve_device
+from repro_torch.fleetsim import faults, prng, reliability
 
 _DEFAULT = UnoParams(bdp=1.0, intra_bdp=1.0, intra_rtt=1.0)  # default fracs
 
@@ -50,8 +52,9 @@ class LbParams(NamedTuple):
 
 
 class ChurnParams(NamedTuple):
-    """Per-flow open-loop on/off churn, all (n_flows,).  Compiled from a
-    spec, but not yet run by the port's step."""
+    """Per-flow open-loop on/off churn, all (n_flows,): geometric
+    per-epoch transitions, P(on->off) = dt/mean_on, P(off->on) =
+    dt/mean_off; `churned == False` pins a flow on."""
     churned: torch.Tensor        # bool: does this flow churn at all
     mean_on: torch.Tensor        # mean ON duration (ns)
     mean_off: torch.Tensor       # mean OFF duration (ns)
@@ -83,9 +86,9 @@ class FleetState(NamedTuple):
     path_frac: torch.Tensor      # (n_flows, n_paths) lagged per-path marks
     bad_count: torch.Tensor      # (n_flows, n_paths) int32 bad streak
     active: torch.Tensor         # (n_flows,) bool churn mask
-    key: Optional[torch.Tensor] = None   # churn PRNG (churn slice)
-    rel: Optional[object] = None         # reliability carry (rel slice)
-    fault: Optional[object] = None       # fault carry (fault slice)
+    key: Optional[torch.Tensor] = None   # (2,) int64 churn PRNG key
+    rel: Optional[object] = None         # RelState, or None
+    fault: Optional[object] = None       # FaultCarry (replicated), or None
 
 
 def make_params(bdp, rtt, intra_bdp: float, intra_rtt: float, *,
@@ -151,6 +154,18 @@ def make_lb_params(n_flows: int, *, eta=0.25, repath_thresh=0.7,
         w_floor=w_floor * ones, ec_eff=eff * ones)
 
 
+def make_churn_params(n_flows: int, *, mean_on: float, mean_off: float,
+                      churned=None, device=None) -> ChurnParams:
+    """Broadcast churn knobs; `churned` defaults to every flow churning."""
+    dev = resolve_device(device)
+    ones = torch.ones(n_flows, dtype=torch.float32, device=dev)
+    if churned is None:
+        churned = torch.ones(n_flows, dtype=torch.bool, device=dev)
+    return ChurnParams(
+        churned=torch.as_tensor(churned, dtype=torch.bool, device=dev),
+        mean_on=mean_on * ones, mean_off=mean_off * ones)
+
+
 def init_state(params: FleetParams, n_links: int,
                cwnd0: Optional[torch.Tensor] = None, *,
                n_paths: int = 1, split0: Optional[torch.Tensor] = None,
@@ -158,13 +173,10 @@ def init_state(params: FleetParams, n_links: int,
     """Line-rate start (cwnd = BDP), empty queues, on params' device.
 
     `split0` (n_flows, n_paths) is required for multipath nets (pass
-    `links.uniform_split(net)`).  `seed` seeds churn, which is not ported
-    yet; `rel` / `fault` raise until their slices land.
+    `links.uniform_split(net)`).  `seed` seeds the churn key and the
+    fault chains; `rel` (RelParams) starts the reliability machine idle,
+    `fault` (FaultSchedule) the fault carry at epoch 0.
     """
-    del seed
-    if rel is not None or fault is not None:
-        raise NotImplementedError("reliability / fault carries are not "
-                                  "ported yet")
     dev = params.bdp.device
     n = params.bdp.shape[0]
     f0 = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -194,4 +206,8 @@ def init_state(params: FleetParams, n_links: int,
                               device=dev),
         bad_count=torch.zeros((n, split0.shape[1]), dtype=torch.int32,
                               device=dev),
-        active=torch.ones(n, dtype=torch.bool, device=dev))
+        active=torch.ones(n, dtype=torch.bool, device=dev),
+        key=prng.PRNGKey(seed, dev),
+        rel=None if rel is None else reliability.init_rel_state(rel),
+        fault=None if fault is None else faults.init_fault_carry(fault,
+                                                                 seed))

@@ -1,13 +1,15 @@
 """Scenario -> fluid model: the (FluidNet, FleetParams, is_inter, LbParams,
-ChurnParams) tensors the port's fleetsim steps on.
+ChurnParams, RelParams, FaultSchedule) tensors the port's fleetsim steps
+on.
 
 The port of the fluid compiler in ``repro.scenarios.compile_fleetsim``.
 The route tensor is built host-side in numpy, the RouteLayout / PathTable
 are compiled from it host-side (`links.with_layout`), and everything moves
 to the device once.  Adaptive weight dynamics (LbParams) are enabled only
 for groups whose LbSpec names an adaptive router over a real multipath set,
-or that carry erasure coding.  Specs with a RelSpec on an inter group, or
-with faults, raise until those slices are ported.  The shard planner
+or that carry erasure coding.  An inter group's RelSpec compiles to the
+reliability machine (`_compile_rel`), the spec's faults to one
+epoch-indexed schedule (`compile_faults`).  The shard planner
 (`ShardPlan`, `plan_shards`), which groups flows by home link and
 relabels links so each shard owns a contiguous private range, lives here
 too.
@@ -21,7 +23,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.fleetsim.faults import FaultSchedule, make_schedule
 from repro_torch.fleetsim.links import FluidNet, compute_layout
+from repro_torch.fleetsim.reliability import (RelParams, make_rel_params,
+                                              stack_rel_params)
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, LbParams,
                                         make_params)
 from repro_torch.scenarios.fat_tree import link_tiers
@@ -44,24 +49,19 @@ class FleetScenario(NamedTuple):
     link_dc: Optional[np.ndarray] = None     # (n_links,) datacenter id per
     # link, -1 on WAN mesh links (host-side; feeds the planner's DC-major
     # shard order — None on topologies without DC structure)
+    rel: Optional[RelParams] = None  # None -> static EC only; its ec_eff
+    # also carries the static LbSpec.ec efficiency of groups without a
+    # RelSpec, since the step reads only rel.ec_eff once rel is set
+    fault: Optional[FaultSchedule] = None    # None on fault-free specs
 
 
 def _flow_adaptive(g) -> bool:
     return g.lb.kind in _ADAPTIVE_KINDS and g.lb.eta > 0
 
 
-def _refuse_unported(spec: Scenario):
-    if spec.faults:
-        raise NotImplementedError("fault specs are not ported yet")
-    if any(g.rel is not None and g.inter for g in spec.groups):
-        raise NotImplementedError("RelSpec (reliability axis) is not "
-                                  "ported yet")
-
-
 def fleet_arrays(spec: Scenario, device=None):
     """(FluidNet, bdp, rtt, is_inter) — topology + per-flow path constants,
     with the RouteLayout (and PathTable where it compresses) attached."""
-    _refuse_unported(spec)
     dev = resolve_device(device)
     f32 = dict(dtype=torch.float32, device=dev)
     idx = spec.link_index()
@@ -170,7 +170,84 @@ def to_fleetsim(spec: Scenario, *, device=None,
 
     return FleetScenario(net=net, params=params, is_inter=is_inter, lb=lb,
                          churn=churn, seed=spec.seed,
-                         link_tier=link_tiers(spec), link_dc=link_dcs(spec))
+                         link_tier=link_tiers(spec), link_dc=link_dcs(spec),
+                         rel=_compile_rel(spec, net),
+                         fault=compile_faults(spec, net))
+
+
+def _compile_rel(spec: Scenario, net: FluidNet) -> Optional[RelParams]:
+    """Per-flow RelParams from the groups' RelSpecs (None when no inter
+    group carries one).  Time-valued knobs round to the epoch clock;
+    `nack_period` defaults to max(rtt/4, 100 us), the packet simulator's
+    NACK timeout.  Groups without a RelSpec ride along disabled, their
+    static `LbSpec.ec` efficiency folded into `rel.ec_eff`."""
+    if not any(g.rel is not None and g.inter for g in spec.groups):
+        return None
+    dev = net.device
+    dt = float(net.dt)
+    rows = []
+    for g in spec.groups:
+        if g.n == 0:
+            continue
+        r = g.rel if g.inter else None
+        if r is not None:
+            rtt_g = g.rtt if g.rtt is not None else (
+                spec.inter_rtt if g.inter else spec.intra_rtt)
+            period = r.nack_period if r.nack_period is not None \
+                else max(0.25 * rtt_g, 100_000.0)
+            rows.append(make_rel_params(
+                g.n, ec=r.ec,
+                nack_period=max(int(round(period / dt)), 1),
+                nack_hold=int(round(r.debounce / dt)),
+                loss_md=r.loss_md, rtx_cap=r.rtx_cap,
+                ladder=r.ladder, ladder_up=r.ladder_up,
+                ladder_down=r.ladder_down, device=dev))
+        else:
+            row = make_rel_params(g.n, enabled=np.zeros(g.n, bool),
+                                  device=dev)
+            k_r = g.lb.ec if g.inter else None
+            if k_r is not None:
+                row = row._replace(ec_eff=torch.full(
+                    (g.n,), k_r[0] / (k_r[0] + k_r[1]), dtype=torch.float32,
+                    device=dev))
+            rows.append(row)
+    return stack_rel_params(rows)
+
+
+def compile_faults(spec: Scenario, net: FluidNet) -> Optional[FaultSchedule]:
+    """spec.faults -> the epoch-indexed FaultSchedule (None when empty).
+
+    An event covers epochs [round(t_start/dt), round(t_end/dt)), so flaps
+    are epoch-quantized.  A "burst" takes the packet simulator's
+    Gilbert-Elliott parameters, p_gb = loss_rate / (burst *
+    mean_burst_len) and p_bg = 1 / mean_burst_len, on a chain that ticks
+    once per epoch.
+    """
+    if not spec.faults:
+        return None
+    idx = spec.link_index()
+    dt = float(net.dt)
+
+    def ep(t):
+        return max(int(round(t / dt)), 0)
+
+    cap_ev, ge_ev = [], []
+    for f in spec.faults:
+        li = idx[f.link]
+        e0 = ep(f.t_start)
+        e1 = None if f.t_end is None else max(ep(f.t_end), e0)
+        if f.kind == "down":
+            cap_ev.append((li, e0, e1, 0.0, 0, 0.0))
+        elif f.kind == "brownout":
+            cap_ev.append((li, e0, e1, f.cap_frac, 0, 0.0))
+        elif f.kind == "flap":
+            cap_ev.append((li, e0, e1, f.cap_frac,
+                           max(int(round(f.period / dt)), 1), f.duty))
+        else:  # "burst" (spec.validate rejects anything else)
+            p_bg = 1.0 / max(f.mean_burst_len, 1.0)
+            p_gb = f.loss_rate / max(f.burst * f.mean_burst_len, 1e-12)
+            ge_ev.append((li, e0, e1, 0.0, f.burst, min(p_gb, 1.0), p_bg))
+    return make_schedule(cap_ev, ge_ev, device=net.device)
 
 
 # ------------------------------------------------ locality shard planning

@@ -5,8 +5,9 @@ churn per group.
 The port's own copy of ``repro.scenarios.spec``; field names, defaults and
 the flow ordering (groups in declaration order, flows in index order) are
 the reference's, so one spec compiles to the same arrays in both packages.
-``RelSpec`` and ``FaultSpec`` exist so specs keep their shape, but the
-port's compiler refuses them until the reliability and fault axes land.
+A group's ``RelSpec`` compiles to the reliability machine and the
+spec's ``FaultSpec``s to the fault schedule
+(`repro_torch.scenarios.compile_fleetsim`).
 
 Units follow the repo convention: ns / bytes / bytes-per-ns.
 """
@@ -65,31 +66,37 @@ class ChurnSpec(NamedTuple):
 
 
 class RelSpec(NamedTuple):
-    """Dynamic reliability (EC + NACK recovery) for one flow group; not yet
-    supported by the port's compiler."""
+    """Dynamic reliability (EC + NACK recovery) for one INTER-DC flow
+    group (ignored on intra groups).  `nack_period` / `debounce` are ns,
+    rounded to epochs by the compiler; `nack_period=None` is a quarter of
+    the flow RTT (at least 100 us).  `ladder=((k0, r0), ...)` turns on the
+    adaptive EC-strength controller, rung 0 replacing `ec`."""
     ec: Tuple[int, int] = (8, 2)
-    nack_period: Optional[float] = None
-    debounce: float = 0.0
-    loss_md: float = 0.5
-    rtx_cap: float = 1.0
+    nack_period: Optional[float] = None   # ns between NACK batch ticks
+    debounce: float = 0.0                 # ns of holdoff after a NACK fires
+    loss_md: float = 0.5                  # cwnd factor on a NACK event
+    rtx_cap: float = 1.0                  # retransmit rate cap vs CC rate
     ladder: Optional[Tuple[Tuple[int, int], ...]] = None
     ladder_up: Optional[Tuple[float, ...]] = None
     ladder_down: Optional[Tuple[float, ...]] = None
 
 
 class FaultSpec(NamedTuple):
-    """One scheduled fault on a named link; not yet supported by the port's
-    compiler."""
+    """One scheduled fault on a named link, times in ns from the start
+    (`t_end=None` never clears): "down" (capacity 0), "brownout"
+    (capacity x `cap_frac`), "flap" (a `period` / `duty` square wave at
+    `cap_frac`), "burst" (Gilbert-Elliott loss, `loss_rate` / `burst` /
+    `mean_burst_len`, one chain tick per epoch)."""
     link: str
     kind: str = "down"
     t_start: float = 0.0
     t_end: Optional[float] = None
-    cap_frac: float = 0.0
-    period: float = 0.0
-    duty: float = 0.5
-    loss_rate: float = 5.01e-5
-    burst: float = 0.25
-    mean_burst_len: float = 3.0
+    cap_frac: float = 0.0          # brownout/flap capacity multiplier
+    period: float = 0.0            # flap period (ns)
+    duty: float = 0.5              # fraction of the period spent faulted
+    loss_rate: float = 5.01e-5     # burst: mean loss prob (paper Table 1)
+    burst: float = 0.25            # burst: loss prob in the bad state
+    mean_burst_len: float = 3.0    # burst: mean bad-state dwell (ticks)
 
 
 FAULT_KINDS = ("down", "brownout", "flap", "burst")
@@ -184,6 +191,10 @@ class Scenario(NamedTuple):
                 raise ValueError(
                     f"{self.name}: unknown fault kind {f.kind!r} "
                     f"(expected one of {FAULT_KINDS})")
+            if f.kind == "flap" and f.period <= 0.0:
+                raise ValueError(
+                    f"{self.name}: flap fault on {f.link!r} needs a "
+                    f"positive period")
         return self
 
 

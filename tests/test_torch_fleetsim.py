@@ -135,8 +135,8 @@ def test_carry_across_one_step_matches_reference(kind, tmp_path):
                                atol=1e-6)
     for f in TF.FleetState._fields:
         rv, pv = getattr(new_r, f), getattr(new_p, f)
-        if f in ("key", "rel", "fault"):
-            assert pv is None
+        if f in ("rel", "fault"):
+            assert rv is None and pv is None
             continue
         np.testing.assert_allclose(pv.numpy().astype(np.float64),
                                    np.asarray(rv).astype(np.float64),
@@ -144,15 +144,27 @@ def test_carry_across_one_step_matches_reference(kind, tmp_path):
 
 
 def test_simulate_record_and_unported_axes():
+    """`simulate(record=True)` gives the (n_epochs, n_flows) trajectory;
+    the churn axis, once refused, runs: the seeded on/off masks flip
+    exactly the reference's flows and the churned trajectory matches it."""
     fs = TS.to_fleetsim(TS.dumbbell_scenario(2, 2), device="cpu")
     final, traj = TF.simulate(fs.net, fs.params, n_epochs=5, record=True)
     assert tuple(traj.shape) == (5, 4) and torch.isfinite(traj).all()
-    churn = TS.to_fleetsim(
-        TS.dumbbell_scenario(2, 2, inter_churn=TS.ChurnSpec(1e6, 1e6)),
-        device="cpu")
-    with pytest.raises(NotImplementedError):
-        TF.steady_state(churn.net, churn.params, n_warm=1, n_meas=1,
-                        churn=churn.churn)
+    specs = [M.dumbbell_scenario(2, 2, inter_churn=M.ChurnSpec(3e4, 2e4),
+                                 intra_churn=M.ChurnSpec(5e4, 5e4), seed=3)
+             for M in (RS, TS)]
+    ref, port = RS.to_fleetsim(specs[0]), TS.to_fleetsim(specs[1],
+                                                         device="cpu")
+    run = dict(n_epochs=300, record=True)
+    s_r, t_r = RF.simulate(ref.net, ref.params, churn=ref.churn,
+                           seed=ref.seed, **run)
+    s_p, t_p = TF.simulate(port.net, port.params, churn=port.churn,
+                           seed=port.seed, **run)
+    np.testing.assert_array_equal(s_p.active.numpy(), np.asarray(s_r.active))
+    np.testing.assert_array_equal(s_p.key.numpy(), np.asarray(s_r.key))
+    np.testing.assert_allclose(t_p.numpy(), np.asarray(t_r), rtol=1e-4,
+                               atol=1e-5)
+    assert float((t_p == 0.0).sum()) > 0      # flows really went idle
     with pytest.raises(ValueError, match="scheme"):
         TF.make_step(fs.net, fs.params, "cubic")
 

@@ -29,7 +29,8 @@ from repro_torch.kernels import ref as TK  # noqa: E402
 TOL = 1e-6
 # the reference runs jitted: one compile per shape instead of one per
 # eager op keeps this file's wall clock small
-_REF_EPOCH = jax.jit(RL.link_epoch, static_argnames=("backend", "block"))
+_REF_EPOCH = jax.jit(RL.link_epoch,
+                     static_argnames=("backend", "block", "with_loss"))
 _REF_LOAD = jax.jit(RK.fleet_offered_load_ref, static_argnums=3)
 _REF_GATHERS = jax.jit(RK.fleet_link_gathers_ref)
 _REF_PT_LOAD = jax.jit(RK.fleet_pt_offered_load_ref, static_argnums=5)
@@ -226,12 +227,16 @@ BACKEND_PAIRS = [("reference", "reference"), ("pt", "pt"),
                  ("cuda", "pallas"), ("pt_cuda", "pt_pallas")]
 
 
+@pytest.mark.parametrize("with_loss", [False, True], ids=["", "with_loss"])
 @pytest.mark.parametrize("p_loss", [False, True], ids=["clean", "p_loss"])
 @pytest.mark.parametrize("port_backend,ref_backend", BACKEND_PAIRS,
                          ids=[p for p, _ in BACKEND_PAIRS])
-def test_link_epoch_matches_reference(port_backend, ref_backend, p_loss):
+def test_link_epoch_matches_reference(port_backend, ref_backend, p_loss,
+                                      with_loss):
     """Every LinkEpoch field of one epoch (load, both queues, marks and
-    the three per-subflow gathers, with the p_loss thinning) matches
+    the three per-subflow gathers, with the p_loss thinning; with
+    `with_loss` the overflow drop probability from the pre-step queues
+    and its per-subflow composition) matches
     repro.fleetsim.links.link_epoch."""
     for case in CASES[-2:]:
         c = _random_case(**case)
@@ -240,13 +245,18 @@ def test_link_epoch_matches_reference(port_backend, ref_backend, p_loss):
         want = _REF_EPOCH(ref, jnp.asarray(c["rates"]),
                           jnp.asarray(c["split"]), jnp.asarray(c["q_phys"]),
                           jnp.asarray(c["q_phantom"]),
-                          backend=ref_backend, block=4)
+                          backend=ref_backend, block=4, with_loss=with_loss)
         got = TL.link_epoch(port, _t(c["rates"]), _t(c["split"]),
                             _t(c["q_phys"]), _t(c["q_phantom"]),
-                            backend=port_backend)
+                            backend=port_backend, with_loss=with_loss)
         for f in TL.LinkEpoch._fields:
-            _close(getattr(got, f), getattr(want, f),
-                   what=f"{port_backend} {f} {case}")
+            g, w = getattr(got, f), getattr(want, f)
+            if w is None:
+                assert g is None, f
+                continue
+            _close(g, w, what=f"{port_backend} {f} {case}")
+        if with_loss:
+            assert float(want.p_drop.max()) > 0.0, case   # overflow seen
 
 
 def test_auto_backend_resolution_on_cpu():
@@ -259,10 +269,19 @@ def test_auto_backend_resolution_on_cpu():
         TL._resolve_backend(flat, "pt_cuda")
     with pytest.raises(ValueError, match="unknown"):
         TL._resolve_backend(flat, "pallas")
-    with pytest.raises(NotImplementedError):
-        TL.link_epoch(flat, torch.ones(flat.routes.shape[0]), None,
-                      torch.zeros(flat.n_links), torch.zeros(flat.n_links),
-                      with_loss=True)
+    # with_loss runs on whatever "auto" resolves to: the flat and the
+    # PathTable composition of the loss signal agree with the reference
+    ref = _ref_net(c, p_loss=True, path_table=False)
+    want = _REF_EPOCH(ref, jnp.asarray(c["rates"]), jnp.asarray(c["split"]),
+                      jnp.asarray(c["q_phys"]), jnp.asarray(c["q_phantom"]),
+                      backend="reference", block=4, with_loss=True)
+    for net in (flat, pt):
+        net = net._replace(p_loss=_t(c["p_loss"]))
+        got = TL.link_epoch(net, _t(c["rates"]), _t(c["split"]),
+                            _t(c["q_phys"]), _t(c["q_phantom"]),
+                            with_loss=True)
+        _close(got.p_drop, want.p_drop, what="p_drop")
+        _close(got.sub_loss, want.sub_loss, what="sub_loss")
 
 
 def test_segment_sum_plain_version_semantics():

@@ -1,9 +1,11 @@
 """The port's scenario layer and fluid compiler against the JAX reference:
 specs equal field for field, and `to_fleetsim` arrays equal array for array
 (int arrays exactly, float arrays as float32), including every RouteLayout
-and PathTable field (multi-DC specs with their `link_dc` too).  Also the
-port's device rule (no silent CPU fallback)
-and its independence from JAX and the reference package."""
+and PathTable field (multi-DC specs with their `link_dc` too) and the
+dynamics axes (ChurnParams, the RelParams of `_compile_rel` with an EC
+ladder, the FaultSchedule of `compile_faults` over every fault kind).
+Also the port's device rule (no silent CPU fallback) and its
+independence from JAX and the reference package."""
 import ast
 import functools
 import pathlib
@@ -84,7 +86,44 @@ SPECS = {
         seed=2),
     "multi_dc_full_two": lambda M: M.multi_dc_spec(
         k=4, n_dc=2, mesh="full", n_wan=2, n_flows=45, n_paths=8, seed=3),
+    "dumbbell_dynamics": lambda M: M.dumbbell_scenario(
+        3, 5, n_bottleneck=2, multipath=True, n_wan=4, wan_p_loss=1e-3,
+        intra_churn=M.ChurnSpec(7e5, 7e5),
+        inter_rel=M.RelSpec(ladder=((8, 1), (8, 2), (8, 4)),
+                            ladder_up=(0.008, 0.05, 1.0),
+                            ladder_down=(0.0, 0.004, 0.025),
+                            debounce=3e4),
+        faults=(M.FaultSpec("wan0", "down", t_start=1e6, t_end=3e6),
+                M.FaultSpec("wan1", "burst", loss_rate=2e-2, burst=0.3),
+                M.FaultSpec("wan2", "brownout", t_start=2e5, cap_frac=0.4),
+                M.FaultSpec("wan3", "flap", t_start=1e5, t_end=9e5,
+                            period=1e5, duty=0.3)),
+        seed=4),
+    "fat_tree_rel_static_ec": lambda M: _two_inter_groups(M),
 }
+
+
+def _two_inter_groups(M):
+    """A k=4 fat tree whose inter flows split into a RelSpec group and a
+    static-EC group (whose k/(k+r) the compiler folds into rel.ec_eff),
+    with a WAN link down from 0.5 ms on."""
+    spec = M.fat_tree_spec(k=4, n_wan=4, n_flows=40, n_paths=4, seed=6)
+    groups = []
+    for g in spec.groups:
+        if not g.inter:
+            groups.append(g)
+            continue
+        h = g.n // 2
+        ps = g.path_sets
+        groups += [
+            g._replace(name="inter_rel", n=h,
+                       path_sets=ps[:h] if len(ps) > 1 else ps,
+                       rel=M.RelSpec(ec=(8, 4), nack_period=5e5)),
+            g._replace(name="inter_ec", n=g.n - h,
+                       path_sets=ps[h:] if len(ps) > 1 else ps,
+                       lb=M.LbSpec(kind="unolb", n_subflows=4, ec=(8, 2)))]
+    return spec._replace(groups=tuple(groups), faults=(
+        M.FaultSpec("B0->B1.0", "down", t_start=5e5),)).validate()
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,6 +160,11 @@ def test_to_fleetsim_arrays_equal_reference(name):
         assert port.lb is None
     else:
         _assert_tuple_same(ref.lb, port.lb, "lb")
+    for f in ("churn", "rel", "fault"):
+        if getattr(ref, f) is None:
+            assert getattr(port, f) is None, f
+        else:
+            _assert_tuple_same(getattr(ref, f), getattr(port, f), f)
     _assert_same(ref.is_inter, port.is_inter, "is_inter")
     for f in ("link_tier", "link_dc"):
         if getattr(ref, f) is None:
@@ -172,12 +216,23 @@ def test_make_params_baseline_cadence_matches_reference():
 
 
 def test_unported_axes_raise():
-    rel = TS.dumbbell_scenario(2, 2, inter_rel=TS.RelSpec())
-    with pytest.raises(NotImplementedError):
-        TS.to_fleetsim(rel, device="cpu")
-    fault = TS.dumbbell_scenario(2, 2, faults=(TS.FaultSpec("wan"),))
-    with pytest.raises(NotImplementedError):
-        TS.to_fleetsim(fault, device="cpu")
+    """The two specs the port once refused (a RelSpec on the inter group,
+    a fault on the WAN) now compile, to the reference's RelParams and
+    FaultSchedule bitwise, with the RelParams of the groups without a
+    RelSpec disabled."""
+    specs = {"rel": lambda M: M.dumbbell_scenario(
+                 2, 2, inter_rel=M.RelSpec()),
+             "fault": lambda M: M.dumbbell_scenario(
+                 2, 2, faults=(M.FaultSpec("wan"),))}
+    for axis, build in specs.items():
+        ref = getattr(RS.to_fleetsim(build(RS)), axis)
+        port = getattr(TS.to_fleetsim(build(TS), device="cpu"), axis)
+        _assert_tuple_same(ref, port, axis)
+    port = TS.to_fleetsim(specs["rel"](TS), device="cpu").rel
+    assert port.enabled.tolist() == [False, False, True, True]
+    assert port.ladder_k is None
+    with pytest.raises(ValueError, match="period"):
+        TS.dumbbell_scenario(1, 1, faults=(TS.FaultSpec("wan", "flap"),))
 
 
 def test_entry_points_never_fall_back_to_cpu():

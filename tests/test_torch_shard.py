@@ -35,6 +35,7 @@ from repro.fleetsim import shard as RSH  # noqa: E402
 from repro.kernels import fleet_pallas  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
 
+import repro_torch.fleetsim as TF  # noqa: E402
 import repro_torch.scenarios as TS  # noqa: E402
 from repro_torch.fleetsim import links as TL  # noqa: E402
 from repro_torch.fleetsim import shard as TSH  # noqa: E402
@@ -79,6 +80,16 @@ def _spec(name, M):
         "multi_dc_ring4": lambda: M.multi_dc_spec(k=4, n_dc=4, mesh="ring",
                                                   n_flows=160, seed=5,
                                                   n_paths=4),
+        "dumbbell_dyn": lambda: M.dumbbell_scenario(
+            3, 6, multipath=True, n_wan=4, n_bottleneck=2, seed=3,
+            intra_churn=M.ChurnSpec(7e4, 7e4),
+            inter_churn=M.ChurnSpec(2e5, 1e5),
+            inter_rel=M.RelSpec(ladder=((8, 1), (8, 2), (8, 4)),
+                                ladder_up=(0.008, 0.05, 1.0),
+                                ladder_down=(0.0, 0.004, 0.025)),
+            faults=(M.FaultSpec("wan0", "down", t_start=1e6, t_end=3e6),
+                    M.FaultSpec("wan1", "burst", loss_rate=2e-2,
+                                burst=0.3))),
     }[name]()
 
 
@@ -162,6 +173,7 @@ def test_contiguous_plan_matches_reference():
 
 SHARD_CASES = {
     "dumbbell_s4": ("dumbbell", 4, {}),
+    "dumbbell_dyn_s2": ("dumbbell_dyn", 2, dict(dynamics=True)),
     "dumbbell_mp_contiguous": ("dumbbell_mp", 2, dict(locality=False)),
     "fat_tree_tier_pt": ("fat_tree", 2, dict(tier=True, path_table=True)),
     "multi_dc_nbr": ("multi_dc", 3, dict(tier=True, dc=True,
@@ -173,6 +185,8 @@ SHARD_CASES = {
 def _shard_kw(fs, name, flags):
     flags = dict(flags)
     kw = _plan_kw(fs, flags.pop("tier", False), flags.pop("dc", False))
+    if flags.pop("dynamics", False):
+        kw.update(churn=fs.churn, rel=fs.rel, fault=fs.fault)
     kw.update(flags)
     return dict(is_inter=fs.is_inter, lb=fs.lb, seed=_spec(name, RS).seed,
                 **kw)
@@ -203,8 +217,13 @@ def _dump_reference_shards(path):
             else:
                 out["lay_" + f] = v
         out.update({"par_" + f: v for f, v in sf.params._asdict().items()})
-        if sf.lb is not None:
-            out.update({"lb_" + f: v for f, v in sf.lb._asdict().items()})
+        for fam in ("lb", "churn", "rel", "fault"):
+            val = getattr(sf, fam)
+            if val is not None:
+                out.update({fam + "_" + f: v for f, v in val._asdict().items()
+                            if v is not None})
+        if sf.churn_map is not None:
+            out["churn_map"] = sf.churn_map
         out["is_inter"], out["own"] = sf.is_inter, sf.own
         if sf.nbr is not None:
             out["nbr"] = sf.nbr
@@ -263,11 +282,19 @@ def test_shard_scenario_arrays_equal_reference(ref_shards, case):
                     ref["pt_" + f][s], f"{case}: path_table[{s}].{f}")
     for f, v in sf.params._asdict().items():
         _eq(v, ref["par_" + f], f"{case}: params.{f}")
-    if sf.lb is not None:
-        for f, v in sf.lb._asdict().items():
-            _eq(v, ref["lb_" + f], f"{case}: lb.{f}")
-    else:
-        assert "lb_eta" not in ref
+    for fam in ("lb", "churn", "rel", "fault"):
+        val = getattr(sf, fam)
+        if val is None:
+            assert not any(k.startswith(fam + "_") for k in ref), case
+            continue
+        for f, v in val._asdict().items():
+            if v is None:
+                assert fam + "_" + f not in ref, (case, fam, f)
+            else:
+                _eq(v, ref[fam + "_" + f], f"{case}: {fam}.{f}")
+    assert (sf.churn_map is None) == ("churn_map" not in ref), case
+    if sf.churn_map is not None:
+        _eq(sf.churn_map, ref["churn_map"], f"{case}: churn_map")
     _eq(sf.is_inter, ref["is_inter"], f"{case}: is_inter")
     _eq(sf.own, ref["own"], f"{case}: own")
     assert (sf.nbr is None) == ("nbr" not in ref), case
@@ -287,11 +314,18 @@ def test_shard_scenario_refusals():
         TSH.shard_scenario(fs.net, fs.params, n_shards=4, exchange="bogus")
     with pytest.raises(ValueError, match="n_shards"):
         TSH.shard_scenario(fs.net, fs.params)
+    # the churn axis, once refused, shards: every epoch each row reads the
+    # global draw of its original flow, so the masks equal one device's
     churned = TS.to_fleetsim(TS.dumbbell_scenario(
-        2, 2, inter_churn=TS.ChurnSpec(1e6, 1e6)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TSH.steady_state_sharded(churned.net, churned.params, n_warm=1,
-                                 n_meas=1, n_shards=2, churn=churned.churn)
+        2, 3, inter_churn=TS.ChurnSpec(3e4, 2e4), seed=2), device="cpu")
+    run = dict(n_warm=60, n_meas=40, churn=churned.churn, seed=2)
+    st1, g1 = TF.steady_state(churned.net, churned.params, **run)
+    st2, g2 = TSH.steady_state_sharded(churned.net, churned.params,
+                                       n_shards=2, **run)
+    _eq(st2.active, st1.active, "sharded churn mask")
+    _eq(st2.key, st1.key, "churn key")
+    np.testing.assert_allclose(g2.numpy(), g1.numpy(), rtol=1e-5, atol=1e-6)
+    assert st1.key.tolist() != [0, 2]      # one draw per epoch happened
 
 
 # ------------------------------------------------------------ K6
