@@ -93,14 +93,32 @@ Phases, each printing one JSON line:
                `torch.cuda.set_sync_debug_mode("error")`; ms/epoch, device
                kernels and threefry2x32 calls per epoch; the fleet
                kernels that phases 3 and 5 held at these layouts must
-               each have launched on its dynamics path.
+               each have launched on its dynamics path;
+ 10. sweeps — (run after phase 9) the scenario sweeps, every cell of a
+               grid stepped as one batched epoch: the full-mode fault
+               grid of benchmarks/fleetsim_sweep.py:534-573 through
+               `fault_sweep` (2 fail times x down / burst x a static and
+               an adaptive EC policy, 100k inter flows a cell: 8 cells,
+               800k flows, 4,000 + 1,000 epochs; every output finite,
+               util > 0; ms/epoch, cell- and flow-epochs/s, device
+               kernels, busy and idle per epoch, threefry2x32 calls per
+               epoch, peak memory), K1 and K2 flat held at its
+               block-diagonal layout as in phase 3 (`…@fault_grid`); the
+               same grid over 400 epochs (fail epochs 50 and 200, 143-epoch
+               windows) batched and each cell alone through
+               `steady_state`, cwnd and rates within 1e-4, fault carries
+               bitwise, both timed (`grid_ms_per_epoch`,
+               `loop_ms_per_epoch`); and `churn_sweep` at 2 x 100k flows
+               (1,000 epochs; two threefry2x32 calls per epoch, the split
+               and one draw for every cell), its masks and keys after 200
+               epochs bitwise those of each cell alone.
 
-Every path that phases 4 to 6, 8 and 9 drive runs with the launch counts zeroed
-just before it and read just after it; each kernel record carries the
-count of the path it belongs to (`path`), and a path's kernel that was
-never launched in it fails the run.  The comparisons of phase 3 do not
-count.  Then a `{"kernels": [...]}` line,
-the `nvidia-smi` name/power-limit line, and last the contract line
+Every path that phases 4 to 6 and 8 to 10 drive runs with the launch
+counts zeroed just before it and read just after it; each kernel record
+carries the count of the path it belongs to (`path`), and a path's
+kernel that was never launched in it fails the run.  The comparisons of
+phase 3 do not count.  Then a `{"kernels": [...]}` line, the
+`nvidia-smi` name/power-limit line, and last the contract line
 `{"ok": true, "device": {...}}`.  Any failed check raises and the script
 exits non-zero.  Without a CUDA device, or without the port's sources
 beside it, it exits non-zero and prints no result.  Full results also go
@@ -157,6 +175,22 @@ DYN_BURST = dict(loss_rate=2e-2, burst=0.3)
 DYN_DB_CHECK, DYN_FT_CHECK = 300, 200    # backend-agreement horizons
 DYN_FT_TIMED = 300           # timed fat-tree epochs, also the shard check
 PRNG_DRAW = 100_003
+# sweeps: the full-mode fault grid of benchmarks/fleetsim_sweep.py:534-573
+# (2 fail times x 2 kinds x 2 EC policies at 100k inter flows a cell,
+# 800k flows in one batched step), its 400-epoch agreement twin, and a
+# 2-cell churn grid at 100k flows
+SWEEP_FAULT = dict(fault_kinds=("down", "burst"),
+                   ec_policies=(((8, 2),), ((8, 1), (8, 2), (8, 4))),
+                   fault_rtts=5.0, n_inter=100_000)
+SWEEP_WARM, SWEEP_MEAS = 4_000, 1_000
+SWEEP_DT = 14_000.0          # the dumbbell's epoch, its intra RTT (ns)
+SWEEP_AGREE_FAILS = (50, 200)            # fail epochs
+SWEEP_AGREE_RTTS = 1.0                   # 143-epoch fault windows
+SWEEP_AGREE_WARM, SWEEP_AGREE_MEAS = 300, 100
+SWEEP_CHURN = dict(duty_fracs=(0.3, 1.0), mean_on_rtts=(200.0,),
+                   n_flows=100_000)
+SWEEP_CHURN_WARM, SWEEP_CHURN_MEAS = 800, 200
+SWEEP_CHURN_CHECK = 200      # epochs batched vs alone, masks bitwise
 
 RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
@@ -1136,6 +1170,263 @@ def dynamics_phase(dev, card, records, plan):
     emit("dynamics", **card, **out)
 
 
+# ------------------------------------------------------------- phase 10
+
+class LoopProbe:
+    """Instrumentation of `sweeps.run_grid` and `cc.steady_state` while in
+    use: the `Grid` each grid batch stacks, and every epoch loop
+    (`steady_state_core`, the grid's and a single cell's alike): its
+    synchronized wall time, epochs, threefry2x32 calls, step and final
+    flat state, set-up excluded."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.fleetsim import cc, prng
+        from repro_torch.fleetsim import sweeps as SW
+        self.grids, self.loops = [], []
+        self._mods = (SW, cc)
+        self._stack, self._core = SW.stack_scenarios, SW.steady_state_core
+
+        def stack(cells):
+            self.grids.append(self._stack(cells))
+            return self.grids[-1]
+
+        def core(step, state, *, n_warm, n_meas, acc):
+            torch.cuda.synchronize()
+            calls = prng.CALLS["threefry2x32"]
+            t0 = time.perf_counter()
+            out = self._core(step, state, n_warm=n_warm, n_meas=n_meas,
+                             acc=acc)
+            torch.cuda.synchronize()
+            self.loops.append(dict(
+                seconds=time.perf_counter() - t0, epochs=n_warm + n_meas,
+                threefry=prng.CALLS["threefry2x32"] - calls, step=step,
+                state=out[0]))
+            return out
+
+        SW.stack_scenarios = stack
+        SW.steady_state_core = cc.steady_state_core = core
+        return self
+
+    def __exit__(self, *exc):
+        self._mods[0].stack_scenarios = self._stack
+        for mod in self._mods:
+            mod.steady_state_core = self._core
+
+
+def _step_profile(step, state, n=20):
+    """`device_profile` of `step` per epoch from `state`."""
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0])
+
+    return device_profile(one, n)
+
+
+def _cell_alone(cell, seed, **run):
+    """One grid cell alone through `steady_state`."""
+    from repro_torch.fleetsim import steady_state
+    net, params, ii, lb, churn, rel, fault = cell
+    return steady_state(net, params, is_inter=ii, lb=lb, churn=churn,
+                        rel=rel, fault=fault, seed=seed, **run)
+
+
+def _grid_loop(name, cells, run):
+    """The cells as one grid (path `sweep:agree:<name>_grid:cuda`) and
+    each alone, one after another (`sweep:agree:<name>_loop:cuda`),
+    seeded i.  Returns (grid final, grid rates, the cells' (final,
+    rates), and the timing: ms per epoch of the grid's loop and of the
+    cells' loops one after another, set-up excluded, the loop's wall with
+    the cells' set-up, and threefry2x32 calls per epoch of the grid and
+    of one cell)."""
+    import torch
+    from repro_torch.fleetsim import sweeps as SW
+    ep = run["n_warm"] + run["n_meas"]
+    with LoopProbe() as probe:
+        final, rates = drive(f"sweep:agree:{name}_grid:cuda",
+                             lambda: SW.run_grid(cells, seed=0, **run))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alone = drive(f"sweep:agree:{name}_loop:cuda", lambda: [
+            _cell_alone(SW._norm_scenario(c), i, **run)
+            for i, c in enumerate(cells)])
+        loop_wall = time.perf_counter() - t0
+    grid, singles = probe.loops[0], probe.loops[1:]
+    check(len(singles) == len(cells), f"{name}: {len(singles)} cell loops")
+    loop_s = sum(c["seconds"] for c in singles)
+    timing = dict(
+        grid_ms_per_epoch=grid["seconds"] / ep * 1e3,
+        loop_ms_per_epoch=loop_s / ep * 1e3,
+        loop_with_setup_ms_per_epoch=loop_wall / ep * 1e3,
+        grid_cell_epochs_per_s=len(cells) * ep / grid["seconds"],
+        loop_cell_epochs_per_s=len(cells) * ep / loop_s,
+        grid_threefry_calls_per_epoch=grid["threefry"] / ep,
+        cell_threefry_calls_per_epoch=sum(c["threefry"] for c in singles)
+        / (ep * len(cells)))
+    return final, rates, alone, timing
+
+
+def _fleet_launches(path, epochs):
+    """The path's fleet-kernel launches per epoch; a path that launched
+    no fleet kernel fails the run."""
+    fleet = {k: v / epochs for k, v in PATHS[path].items()
+             if k.startswith(("link_scatter", "link_gathers", "pt_"))}
+    check(bool(fleet), f"{path} launched no fleet kernel")
+    return fleet
+
+
+def sweeps_phase(dev, card):
+    """Phase 10 (module docstring); returns the kernel records of K1 and
+    K2 at the fault grid's shapes."""
+    import torch
+    from repro_torch.fleetsim import links as L
+    from repro_torch.fleetsim import make_step, prng
+    from repro_torch.fleetsim import sweeps as SW
+
+    t_phase = time.perf_counter()
+    fk = dict(fault_kinds=SWEEP_FAULT["fault_kinds"],
+              ec_policies=SWEEP_FAULT["ec_policies"])
+    n_inter = SWEEP_FAULT["n_inter"]
+
+    # ---- fault_grid@8x100k: the benchmark's full-mode grid, fault_sweep
+    epochs = SWEEP_WARM + SWEEP_MEAS
+    span = epochs * SWEEP_DT
+    kw = dict(SWEEP_FAULT, fail_times=(0.2 * span, 0.5 * span))
+    path = "sweep:fault_grid:cuda"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LoopProbe() as probe:
+        res = drive(path, lambda: SW.fault_sweep(
+            n_warm=SWEEP_WARM, n_meas=SWEEP_MEAS, device=dev, **kw))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(probe.grids) == 1, "fault grid: one batch")
+    grid, loop = probe.grids[0], probe.loops[0]
+    for key in ("util", "jain", "retx_ratio", "rec_ratio", "loss_ratio",
+                "nacks", "nack_lat", "rung_mean", "rates"):
+        check(bool(torch.isfinite(res[key]).all()), f"fault grid: {key} "
+              "not finite")
+    check(bool((res["util"] > 0.0).all()), "fault grid: util <= 0")
+    n = grid.net.routes.shape[0]
+    fault_grid = dict(
+        **kw, n_warm=SWEEP_WARM, n_meas=SWEEP_MEAS, epochs_cut=None,
+        cells=grid.n_cells, flows=n, links=grid.net.n_links,
+        backend=L._resolve_backend(grid.net, "auto"), wall_s=wall,
+        setup_s=wall - loop["seconds"], run_s=loop["seconds"],
+        ms_per_epoch=loop["seconds"] / epochs * 1e3,
+        cell_epochs_per_s=grid.n_cells * epochs / loop["seconds"],
+        flow_epochs_per_s=n * epochs / loop["seconds"],
+        fleet_launches_per_epoch=_fleet_launches(path, epochs),
+        threefry_calls_per_epoch=loop["threefry"] / epochs,
+        profile=_step_profile(loop["step"], loop["state"]),
+        peak_mem_bytes=peak,
+        **{k: res[k].reshape(-1).tolist()
+           for k in ("util", "rung_mean", "loss_ratio")},
+        fault_config=res["fault_config"])
+    records, errs = kernel_phase(grid.net, dev, path, tag="@fault_grid")
+    fault_grid.update(errs)
+    del grid, loop, probe, res
+
+    # ---- fault_grid_agree: the same 2x2x2 grid over 400 epochs, batched
+    # and each cell alone
+    dur = round(SWEEP_AGREE_RTTS * 2e6 / SWEEP_DT)
+    check(dur >= 100, f"agreement fault window {dur} epochs")
+    cells, _ = SW._fault_cells(
+        [e * SWEEP_DT for e in SWEEP_AGREE_FAILS], n_inter=n_inter,
+        fault_rtts=SWEEP_AGREE_RTTS, device=dev, **fk)
+    run = dict(n_warm=SWEEP_AGREE_WARM, n_meas=SWEEP_AGREE_MEAS)
+    ep = SWEEP_AGREE_WARM + SWEEP_AGREE_MEAS
+    final, rates, alone, timing = _grid_loop("fault", cells, run)
+    errs, rungs_differ = [], 0
+    for i, (st, g) in enumerate(alone):
+        errs.append(_agreement_errs(final.cwnd[i], rates[i], st.cwnd, g))
+        check(max(errs[-1].values()) <= BACKEND_RTOL,
+              f"fault grid cell {i} vs alone: {errs[-1]}")
+        check(all(torch.equal(getattr(final.fault, f)[i],
+                              getattr(st.fault, f))
+                  for f in ("epoch", "ge_bad", "key")),
+              f"fault grid cell {i}: fault carry differs from alone")
+        rungs_differ += int((final.rel.rung[i] != st.rel.rung).sum())
+    cell0 = SW._norm_scenario(cells[0])
+    step0 = make_step(cell0[0], cell0[1], "uno", cell0[2], lb=cell0[3],
+                      churn=cell0[4], rel=cell0[5], fault=cell0[6])
+    agree = dict(
+        fail_epochs=list(SWEEP_AGREE_FAILS), fault_window_epochs=dur,
+        n_inter=n_inter, epochs=ep, cells=len(cells),
+        rel_err_vs_alone=errs, max_rel_err=max(max(e.values())
+                                               for e in errs),
+        fault_carries_bitwise=True, rung_mismatches=rungs_differ,
+        **timing,
+        grid_fleet_launches_per_epoch=_fleet_launches(
+            "sweep:agree:fault_grid:cuda", ep),
+        cell_fleet_launches_per_epoch=_fleet_launches(
+            "sweep:agree:fault_loop:cuda", ep * len(cells)),
+        cell_profile=_step_profile(step0, alone[0][0]))
+    check(timing["grid_threefry_calls_per_epoch"] ==
+          timing["cell_threefry_calls_per_epoch"],
+          "fault grid draws more often than one cell")
+    del final, rates, alone, cells, step0
+
+    # ---- churn_grid@2x100k: churn_sweep, and 200 epochs batched vs alone
+    path = "sweep:churn_grid:cuda"
+    cep = SWEEP_CHURN_WARM + SWEEP_CHURN_MEAS
+    with LoopProbe() as probe:
+        res = drive(path, lambda: SW.churn_sweep(
+            n_warm=SWEEP_CHURN_WARM, n_meas=SWEEP_CHURN_MEAS, device=dev,
+            **SWEEP_CHURN))
+    loop = probe.loops[0]
+    check(bool(torch.isfinite(res["util"]).all() and
+               (res["util"] > 0.0).all()), f"churn grid util {res['util']}")
+    churn = dict(
+        **SWEEP_CHURN, n_warm=SWEEP_CHURN_WARM, n_meas=SWEEP_CHURN_MEAS,
+        cells=probe.grids[0].n_cells, flows=probe.grids[0].cell_flows
+        * probe.grids[0].n_cells,
+        ms_per_epoch=loop["seconds"] / cep * 1e3,
+        cell_epochs_per_s=probe.grids[0].n_cells * cep / loop["seconds"],
+        threefry_calls_per_epoch=loop["threefry"] / cep,
+        fleet_launches_per_epoch=_fleet_launches(path, cep),
+        util=res["util"].reshape(-1).tolist(),
+        jain=res["jain"].reshape(-1).tolist(),
+        profile=_step_profile(loop["step"], loop["state"]),
+        # threefry's share of the grid epoch: the epoch's churn split and
+        # its one draw over every cell's flows, alone
+        draw_profiles=dict(
+            split=call_profile(lambda: prng.split(loop["state"].key)),
+            uniform=call_profile(lambda: prng.uniform(
+                loop["state"].key, (SWEEP_CHURN["n_flows"],)))))
+    # the churn split and the one draw of every cell's flows
+    check(churn["threefry_calls_per_epoch"] == 2.0,
+          f"churn grid threefry per epoch {churn['threefry_calls_per_epoch']}")
+    del probe, loop, res
+    cells = SW._churn_cells(SWEEP_CHURN["duty_fracs"],
+                            SWEEP_CHURN["mean_on_rtts"],
+                            n_flows=SWEEP_CHURN["n_flows"], device=dev)
+    run = dict(n_warm=SWEEP_CHURN_CHECK // 2,
+               n_meas=SWEEP_CHURN_CHECK - SWEEP_CHURN_CHECK // 2)
+    final, rates, alone, timing = _grid_loop("churn", cells, run)
+    masks = all(torch.equal(final.active[i], st.active) and
+                torch.equal(final.key[i], st.key)
+                for i, (st, _) in enumerate(alone))
+    check(masks, "churn grid: masks or keys differ from the cells alone")
+    churn.update(
+        check_epochs=SWEEP_CHURN_CHECK, masks_keys_bitwise=masks,
+        active_share=[float(st.active.float().mean()) for st, _ in alone],
+        rel_err_vs_alone=[_agreement_errs(final.cwnd[i], rates[i],
+                                          st.cwnd, g)
+                          for i, (st, g) in enumerate(alone)],
+        **timing)
+    check(churn["grid_threefry_calls_per_epoch"] ==
+          churn["cell_threefry_calls_per_epoch"],
+          "churn grid draws more often than one cell")
+    del final, rates, alone, cells
+    emit("sweeps", **card, fault_grid=fault_grid, fault_grid_agree=agree,
+         churn_grid=churn, records=records,
+         seconds=time.perf_counter() - t_phase)
+    return records
+
+
 # ------------------------------------------------------------- phase 7/8
 
 def uno_path(p: int, backend: str = "cuda") -> str:
@@ -1466,6 +1757,7 @@ def main() -> int:
     del state, single
     dumbbells(dev, card, fs_mp)
     dynamics_phase(dev, card, records, plan)
+    records += sweeps_phase(dev, card)
     uno_cfg = get_config(UNO_ARCH)
     uno_records, n_patterns = unorc_kernel_phase(dev, uno_cfg)
     emit("unorc_kernels", records=uno_records, erasure_patterns=n_patterns)

@@ -1,7 +1,8 @@
 """Fluid-model fleet simulator: the steady state on one device, the
 dynamics axes (churn on the threefry PRNG of `prng`, the reliability
-machine of `reliability`, the fault schedule of `faults`), and the
-locality-sharded flow axis (`shard`)."""
+machine of `reliability`, the fault schedule of `faults`), the
+locality-sharded flow axis (`shard`) and scenario sweeps, every cell of
+a grid stepped as one batched epoch (`sweeps`)."""
 from repro_torch.fleetsim.carry import scenario_from_arrays, state_from_arrays
 from repro_torch.fleetsim.cc import (SCHEMES, make_step, make_step_halves,
                                      simulate, steady_state,
@@ -13,6 +14,7 @@ from repro_torch.fleetsim.faults import (FaultCarry, FaultSchedule,
 from repro_torch.fleetsim.links import (LOAD_BACKENDS, FluidNet, PathTable,
                                         RouteLayout, compute_layout,
                                         compute_path_table, drop_prob,
+                                        dumbbell,
                                         halo_exchange, link_epoch,
                                         normalize_split, offered_load,
                                         scatter_partial, uniform_split,
@@ -29,7 +31,11 @@ from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
                                         LbParams, init_state,
                                         make_churn_params, make_lb_params,
                                         make_params)
-from repro_torch.fleetsim.sweeps import fleet_sum, jain
+from repro_torch.fleetsim.sweeps import (Grid, churn_sweep, fairness_sweep,
+                                         fault_sweep, fleet_sum, jain,
+                                         load_mix_sweep, recovery_sweep,
+                                         run_grid, run_grid_streamed,
+                                         stack_scenarios)
 
 __all__ = [
     "scenario_from_arrays", "state_from_arrays",
@@ -38,7 +44,8 @@ __all__ = [
     "FaultCarry", "FaultSchedule", "apply_modulation", "degrade_split",
     "fault_modulation", "init_fault_carry", "make_schedule",
     "LOAD_BACKENDS", "FluidNet", "PathTable", "RouteLayout",
-    "compute_layout", "compute_path_table", "drop_prob", "halo_exchange",
+    "compute_layout", "compute_path_table", "drop_prob", "dumbbell",
+    "halo_exchange",
     "link_epoch", "normalize_split", "offered_load", "scatter_partial",
     "uniform_split", "with_layout",
     "RelParams", "RelState", "init_rel_state", "make_rel_params",
@@ -47,5 +54,7 @@ __all__ = [
     "steady_state_prepared", "steady_state_sharded",
     "ChurnParams", "FleetParams", "FleetState", "LbParams", "init_state",
     "make_churn_params", "make_lb_params", "make_params",
-    "fleet_sum", "jain",
+    "Grid", "churn_sweep", "fairness_sweep", "fault_sweep", "fleet_sum",
+    "jain", "load_mix_sweep", "recovery_sweep", "run_grid",
+    "run_grid_streamed", "stack_scenarios",
 ]

@@ -188,8 +188,7 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
             cap_scale, p_extra, carry = F.fault_modulation(
                 fault, state.fault, net.n_links)
         if churn is not None:
-            key, sub = prng.split(state.key)
-            u = prng.uniform(sub, (n_draw,))
+            key, u = prng.split_uniform(state.key, n_draw)
         return EpochDraws(cap_scale, p_extra, carry, key, u)
 
     def send(state: FleetState, draws: EpochDraws,

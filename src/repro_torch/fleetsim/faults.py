@@ -66,7 +66,8 @@ class FaultSchedule(NamedTuple):
 
 class FaultCarry(NamedTuple):
     """Fault state carried from epoch to epoch; replicated, never
-    flow-indexed."""
+    flow-indexed.  A grid of B cells (`fleetsim.sweeps`) carries one
+    chain key per cell, (B, 2), over its concatenated (B·G,) chains."""
     epoch: torch.Tensor    # 0-d int32: epochs since simulation start
     ge_bad: torch.Tensor   # (G,) bool: burst chains in the BAD state
     key: torch.Tensor      # (2,) int64 PRNG key of the chain transitions
@@ -99,9 +100,11 @@ def make_schedule(cap_events: Sequence[Tuple] = (),
         ge_p_gb=col(ge_events, 5, f32), ge_p_bg=col(ge_events, 6, f32))
 
 
-def init_fault_carry(fault: FaultSchedule, seed: int = 0) -> FaultCarry:
+def init_fault_carry(fault: FaultSchedule, seed=0) -> FaultCarry:
     """Epoch 0, every chain good, the chain key the seed's key folded
-    away from the churn key (which is the seed's own)."""
+    away from the churn key (which is the seed's own).  A sequence of
+    seeds, one per cell of a grid whose schedules are concatenated, gives
+    the (cells, 2) chain keys."""
     dev = fault.link.device
     return FaultCarry(
         epoch=torch.zeros((), dtype=torch.int32, device=dev),
@@ -129,8 +132,7 @@ def fault_modulation(fault: FaultSchedule, carry: FaultCarry, n_links: int):
     p_extra = None
     ge_bad, key = carry.ge_bad, carry.key
     if fault.n_ge_events:
-        key, sub = prng.split(carry.key)
-        u = prng.uniform(sub, fault.ge_link.shape)
+        key, u = prng.split_uniform(carry.key, fault.n_ge_events)
         win = (ep >= fault.ge_t0) & (ep < fault.ge_t1)
         # outside its window a chain is pinned to good
         ge_bad = torch.where(ge_bad, u >= fault.ge_p_bg,

@@ -642,3 +642,37 @@ def link_epoch(net: FluidNet, rates: torch.Tensor, split: torch.Tensor,
     load = offered_load(net, rates, split, backend=rb, halo=halo)
     return link_physics(net, load, q_phys, q_phantom, backend=rb,
                         with_loss=with_loss)
+
+
+# -------------------------------------------------------------- builders
+
+def dumbbell(n_intra: int, n_inter: int, *, rate: float = RATE_100G,
+             intra_rtt: float = 14 * US, inter_rtt: float = 2 * MS,
+             qcap: float = 1 * MIB, n_wan: int = 8, n_bottleneck: int = 1,
+             phantom: bool = True, drain_frac: float = 0.9,
+             cap_bdps: float = 1.0, min_frac: float = 0.05,
+             max_frac: float = 0.35, red_lo_frac: float = 0.25,
+             red_hi_frac: float = 0.75, epoch_period_frac: float = 1.0,
+             multipath: bool = False, device=None):
+    """The inter/intra dumbbell as (FluidNet with its RouteLayout, bdp
+    (n_flows,), rtt (n_flows,)) on `device` (default cuda): a thin
+    wrapper that builds `scenarios.dumbbell_scenario` and compiles it with
+    `scenarios.fleet_arrays`, the reference's quick builder.
+
+    Flows are numbered intra first, then inter; flow i sends to downlink
+    i % n_bottleneck.  `multipath=False` aggregates the n_wan border links
+    into one WAN pipe and gives every flow one path; `multipath=True`
+    keeps them apart and gives each inter flow one path per WAN link.
+    Routes are (n_flows, n_paths, 2).
+    """
+    # imported here: the scenarios package itself imports fleetsim
+    from repro_torch.scenarios import dumbbell_scenario, fleet_arrays
+    spec = dumbbell_scenario(
+        n_intra, n_inter, rate=rate, intra_rtt=intra_rtt,
+        inter_rtt=inter_rtt, qcap=qcap, n_wan=n_wan,
+        n_bottleneck=n_bottleneck, phantom=phantom, drain_frac=drain_frac,
+        cap_bdps=cap_bdps, min_frac=min_frac, max_frac=max_frac,
+        red_lo_frac=red_lo_frac, red_hi_frac=red_hi_frac,
+        epoch_period_frac=epoch_period_frac, multipath=multipath)
+    net, bdp, rtt, _ = fleet_arrays(spec, device)
+    return net, bdp, rtt

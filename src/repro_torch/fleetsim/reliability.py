@@ -49,7 +49,12 @@ class RelParams(NamedTuple):
     `coef` (n_flows, MAX_R + 1).  Flows with `enabled == False` keep
     `ec_eff` as a static goodput factor and bypass the machine.  The
     ladder arrays are rung-indexed and shared by every flow; all None
-    means static EC."""
+    means static EC.  A grid of cells whose ladders differ
+    (`fleetsim.sweeps`) stacks them to per-cell tables with a leading
+    cell axis, (cells, L) and (cells, L, MAX_R + 1); its flows are
+    cell-major (cell b's F flows are rows b·F to (b+1)·F - 1), so each
+    flow reads its own cell's rungs, and `RelState.rung` stays the
+    cell-local rung."""
     enabled: torch.Tensor        # bool: EC+NACK active on this flow
     ec_k: torch.Tensor           # data packets per block
     ec_r: torch.Tensor           # parity packets per block
@@ -222,15 +227,27 @@ def init_rel_state(rel: RelParams) -> RelState:
                     adapt_cd=z)
 
 
+def _rung(rel: RelParams, table: torch.Tensor,
+          rung: torch.Tensor) -> torch.Tensor:
+    """Each flow's row of a rung-indexed ladder table: table[rung], or on
+    a grid's per-cell tables (`ladder_k` 2-D) its own cell's row."""
+    if rel.ladder_k.dim() == 1:
+        return table[rung]
+    idx = rung.reshape(rel.ladder_k.shape[0], -1).long()
+    if table.dim() == 3:
+        idx = idx[..., None].expand(-1, -1, table.shape[-1])
+    return torch.gather(table, 1, idx).reshape((-1,) + table.shape[2:])
+
+
 def _effective_geometry(rel: RelParams, st: Optional[RelState]):
     """(ec_k, ec_r, coef) with each adapting flow's ladder rung folded in."""
     ec_k, ec_r, coef = rel.ec_k, rel.ec_r, rel.coef
     if st is not None and rel.ladder_k is not None:
         on = rel.adapt_on
-        ec_k = torch.where(on, rel.ladder_k[st.rung], ec_k)
-        ec_r = torch.where(on, rel.ladder_r[st.rung], ec_r)
-        coef = torch.where(on[:, None], rel.ladder_coef[st.rung],
-                           coef)
+        ec_k = torch.where(on, _rung(rel, rel.ladder_k, st.rung), ec_k)
+        ec_r = torch.where(on, _rung(rel, rel.ladder_r, st.rung), ec_r)
+        coef = torch.where(on[:, None],
+                           _rung(rel, rel.ladder_coef, st.rung), coef)
     return ec_k, ec_r, coef
 
 
@@ -238,7 +255,7 @@ def effective_eff(rel: RelParams, st: Optional[RelState]) -> torch.Tensor:
     """Current goodput efficiency k/(k+r), ladder rung folded in."""
     if st is None or rel.ladder_eff is None:
         return rel.ec_eff
-    return torch.where(rel.adapt_on, rel.ladder_eff[st.rung],
+    return torch.where(rel.adapt_on, _rung(rel, rel.ladder_eff, st.rung),
                        rel.ec_eff)
 
 
@@ -309,14 +326,14 @@ def rel_epoch(rel: RelParams, st: RelState, rate: torch.Tensor,
     if rel.ladder_k is None:
         rung, loss_ewma, adapt_cd = st.rung, st.loss_ewma, st.adapt_cd
     else:
-        n_rungs = rel.ladder_k.shape[0]
+        n_rungs = rel.ladder_k.shape[-1]
         loss_ewma = st.loss_ewma + \
             torch.clamp(dt / rtt, max=1.0) * (q - st.loss_ewma)
         cd = torch.clamp(st.adapt_cd - dt, min=0.0)
         can = rel.adapt_on & rel.enabled & (cd <= 0.0)
-        step_up = can & (loss_ewma > rel.ladder_up[st.rung]) \
+        step_up = can & (loss_ewma > _rung(rel, rel.ladder_up, st.rung)) \
             & (st.rung < n_rungs - 1)
-        step_dn = can & (loss_ewma < rel.ladder_down[st.rung]) \
+        step_dn = can & (loss_ewma < _rung(rel, rel.ladder_down, st.rung)) \
             & (st.rung > 0)
         rung = st.rung + step_up.to(torch.int32) \
             - step_dn.to(torch.int32)

@@ -86,7 +86,8 @@ class FleetState(NamedTuple):
     path_frac: torch.Tensor      # (n_flows, n_paths) lagged per-path marks
     bad_count: torch.Tensor      # (n_flows, n_paths) int32 bad streak
     active: torch.Tensor         # (n_flows,) bool churn mask
-    key: Optional[torch.Tensor] = None   # (2,) int64 churn PRNG key
+    key: Optional[torch.Tensor] = None   # (2,) int64 churn PRNG key;
+    # (cells, 2) on a grid, one key per cell (`fleetsim.sweeps`)
     rel: Optional[object] = None         # RelState, or None
     fault: Optional[object] = None       # FaultCarry (replicated), or None
 
@@ -169,13 +170,15 @@ def make_churn_params(n_flows: int, *, mean_on: float, mean_off: float,
 def init_state(params: FleetParams, n_links: int,
                cwnd0: Optional[torch.Tensor] = None, *,
                n_paths: int = 1, split0: Optional[torch.Tensor] = None,
-               seed: int = 0, rel=None, fault=None) -> FleetState:
+               seed=0, rel=None, fault=None) -> FleetState:
     """Line-rate start (cwnd = BDP), empty queues, on params' device.
 
     `split0` (n_flows, n_paths) is required for multipath nets (pass
     `links.uniform_split(net)`).  `seed` seeds the churn key and the
-    fault chains; `rel` (RelParams) starts the reliability machine idle,
-    `fault` (FaultSchedule) the fault carry at epoch 0.
+    fault chains; a sequence of seeds, one per cell of a grid
+    (`fleetsim.sweeps`), gives the (cells, 2) keys.  `rel` (RelParams)
+    starts the reliability machine idle, `fault` (FaultSchedule) the
+    fault carry at epoch 0.
     """
     dev = params.bdp.device
     n = params.bdp.shape[0]

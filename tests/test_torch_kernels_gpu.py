@@ -1,6 +1,7 @@
 """K2 (the fleet link -> flow gathers), K3 (the UnoRC GF(2^8) product)
 and K5 (the UnoRC dequant) on the card, against their plain versions,
-bitwise.
+bitwise; and K1 / K2 flat at the shapes of a sweep grid (8 x 100k-flow
+dumbbells as one block-diagonal net).
 
 This file imports no JAX, so that it runs on the machine with the card:
 
@@ -140,3 +141,60 @@ def test_gf_matmul_more_groups_than_the_grid_on_card(dev):
                                       dtype=np.uint8)).to(dev)
     got = _no_sync(lambda: unorc_cuda.gf_matmul(x, coeffs, use="decode"))
     assert torch.equal(got, TK.gf_matmul_ref(coeffs, x))
+
+
+@pytest.fixture(scope="module")
+def fault_grid_net():
+    """The block-diagonal net of the fault sweep's grid: 8 cells of the
+    lossy 100k-flow dumbbell (`sweeps.stack_scenarios`), 800,000 flows
+    over 800,016 links."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.fleetsim import sweeps
+    from repro_torch.scenarios import dumbbell_scenario, to_fleetsim
+    fs = to_fleetsim(dumbbell_scenario(
+        0, 100_000, qcap=64 * 1024, phantom=False, red_lo_frac=0.85,
+        red_hi_frac=0.98), device="cuda")
+    return sweeps.stack_scenarios([fs] * 8).net
+
+
+@pytest.mark.gpu
+def test_grid_k1_k2_flat_match_plain_versions_on_card(fault_grid_net):
+    """K1 and K2 flat at the grid's shapes (8 segments of 100,000 entries
+    on the bottlenecks in one CSR): K1 within 1e-6 per link of the
+    float64 plain sum and bitwise the tiled plain version on integer
+    values, K2 bitwise its plain version; two runs equal; no host sync."""
+    net = fault_grid_net
+    lay, nl = net.layout, net.n_links
+    dev = net.device
+    counts = lay.link_ptr[1:nl + 1] - lay.link_ptr[:nl]
+    assert int((counts >= 100_000).sum()) >= 8
+    n, p, _ = lay.pad_idx.shape
+    g = torch.Generator(device=dev).manual_seed(8)
+    rates = torch.rand(n, device=dev, generator=g) * 12.5
+    split = TL.normalize_split(torch.rand(n, p, device=dev, generator=g),
+                               lay.path_mask)
+    sub = rates[:, None] * split
+    csr = (lay.sort_sub, lay.link_ptr)
+    got = _no_sync(lambda: fleet_cuda.link_scatter(lay.pad_idx, sub, nl,
+                                                   csr=csr))
+    assert torch.equal(fleet_cuda.link_scatter(lay.pad_idx, sub, nl,
+                                               csr=csr), got)
+    truth = TK.fleet_offered_load_ref(TL._routes3(net), rates.double(),
+                                      split.double(), nl)[:nl]
+    nz = truth != 0
+    assert bool((got[:nl][~nz] == 0).all())
+    rel = (got[:nl][nz].double() - truth[nz]).abs() / truth[nz].abs()
+    assert float(rel.max()) <= 1e-6
+    v_int = torch.randint(0, 16, (n * p + 1,), generator=g, device=dev,
+                          dtype=torch.int32).float()
+    v_int[-1] = 0.0
+    assert torch.equal(
+        fleet_cuda.segment_sum(v_int, lay.sort_sub, lay.link_ptr),
+        TK.csr_segment_sum_tiled_ref(v_int, lay.sort_sub, lay.link_ptr))
+    vals = (0.05 + 0.95 * torch.rand(nl, device=dev, generator=g),
+            1.0 - 0.05 * torch.rand(nl, device=dev, generator=g),
+            1_000.0 * torch.rand(nl, device=dev, generator=g))
+    out = _no_sync(lambda: fleet_cuda.link_gathers(lay.pad_idx, *vals))
+    _equal(out, TK.link_gathers_ref(lay.pad_idx, *vals), "K2 at the grid")
+    _equal(fleet_cuda.link_gathers(lay.pad_idx, *vals), out, "K2 twice")
