@@ -113,7 +113,36 @@ Phases, each printing one JSON line:
                and one draw for every cell), its masks and keys after 200
                epochs bitwise those of each cell alone.
 
-Every path that phases 4 to 6 and 8 to 10 drive runs with the launch
+ 11. sharded_grid — (run after phase 10) the sharded scenario grid,
+               `run_grid(n_shards=2)`: two cells of the main path's fat
+               tree, cell 1 its drain what-if (drain x 0.9; the routes
+               stay cell 0's), 200,000 flows on 2 stacked shards under
+               cell 0's plan lifted to the grid (boundary = 2 x the
+               cell's), psum (`run_grid`) and nbr (the same compiled grid
+               under the neighbor exchange) on `pt_cuda`, 300 epochs each
+               and unsharded; and phase 10's fault grid through
+               `fault_sweep(n_shards=2)` (every link boundary: the
+               full-buffer exchange, K1 and K2 flat), 400 epochs, and
+               unsharded.  Each cell within 1e-5 x the rate scale of the
+               unsharded grid, psum and nbr bitwise, fault carries and
+               rungs bitwise, split rows summing to 1; ms per grid epoch,
+               cell-epochs/s, set-up (`shard_grid`), device kernels, busy
+               and idle per epoch, exchange bytes, peak memory, fleet
+               kernels per epoch; K1 stage 1, K6 (PathTable stage 2) and
+               `pt_gathers` at the fat-tree grid's shard 0, K1 and K2 flat
+               at the fault grid's, as in phase 3 (`…@fat_tree_grid:shard2`,
+               `…@fault_grid:shard2`);
+ 12. service — the sweep service (`SweepService`) on a fresh cache
+               directory under the temporary directory: cold (the fat
+               tree's spec build, compile and bundle publish, and its first
+               query, 300 epochs), warm (the query again: 0 layout builds),
+               bundle load (a fresh service on the warm directory; the
+               arrays bitwise those written), four drain what-ifs as one
+               rung-4 batch (its layout built), four other drains (the
+               same routes: the layout reused), and a mixed 100k-dumbbell + fat-tree batch
+               twice (the second pass: 0 spec builds, 0 layout builds).
+
+Every path that phases 4 to 6 and 8 to 12 drive runs with the launch
 counts zeroed just before it and read just after it; each kernel record
 carries the count of the path it belongs to (`path`), and a path's
 kernel that was never launched in it fails the run.  The comparisons of
@@ -191,6 +220,18 @@ SWEEP_CHURN = dict(duty_fracs=(0.3, 1.0), mean_on_rtts=(200.0,),
                    n_flows=100_000)
 SWEEP_CHURN_WARM, SWEEP_CHURN_MEAS = 800, 200
 SWEEP_CHURN_CHECK = 200      # epochs batched vs alone, masks bitwise
+# sharded grid: the main path's fat tree and its drain what-if
+# (benchmarks/sweep_server.py:122-126) on 2 stacked shards under cell 0's
+# plan lifted to the grid, psum and nbr; the fault grid above through
+# fault_sweep(n_shards=2); each against the same grid unsharded over the
+# same epochs from the same fresh state
+GRID_DRAIN = 0.9
+GRID_WARM, GRID_MEAS = 200, 100
+SHARD_FAULT_WARM, SHARD_FAULT_MEAS = 300, 100
+GRID_RTOL = 1e-5    # x the rate scale: the reference's sharded-grid bar
+# service: the main path's fat tree through SweepService on a fresh cache
+SVC_WARM, SVC_MEAS = 200, 100
+SVC_DRAINS = ((0.8, 0.9, 1.0, 1.1), (0.7, 0.85, 0.95, 1.2))
 
 RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
@@ -777,8 +818,7 @@ def sharded_phase(fs, dev, card, state, single):
     t0 = time.perf_counter()
     sf = {"psum": SH.shard_scenario(fs.net, fs.params, n_shards=2,
                                     exchange="psum", **kw)}
-    sf["nbr"] = SH.shard_scenario(fs.net, fs.params, n_shards=2,
-                                  exchange="nbr", plan=sf["psum"].plan, **kw)
+    sf["nbr"] = SH._with_exchange(sf["psum"], "nbr")
     torch.cuda.synchronize()
     shard_s = time.perf_counter() - t0
     plan = sf["psum"].plan
@@ -1174,7 +1214,9 @@ def dynamics_phase(dev, card, records, plan):
 
 class LoopProbe:
     """Instrumentation of `sweeps.run_grid` and `cc.steady_state` while in
-    use: the `Grid` each grid batch stacks, and every epoch loop
+    use: the `Grid` each grid batch stacks, the `ShardedFleet` and the
+    synchronized seconds of each `sweeps.shard_grid` (the sharded grid's
+    set-up), each `run_grid`'s (final, rates), and every epoch loop
     (`steady_state_core`, the grid's and a single cell's alike): its
     synchronized wall time, epochs, threefry2x32 calls, step and final
     flat state, set-up excluded."""
@@ -1183,13 +1225,27 @@ class LoopProbe:
         import torch
         from repro_torch.fleetsim import cc, prng
         from repro_torch.fleetsim import sweeps as SW
-        self.grids, self.loops = [], []
+        self.grids, self.loops, self.sharded, self.results = [], [], [], []
         self._mods = (SW, cc)
         self._stack, self._core = SW.stack_scenarios, SW.steady_state_core
+        self._shard, self._run = SW.shard_grid, SW.run_grid
 
-        def stack(cells):
-            self.grids.append(self._stack(cells))
+        def stack(cells, **kw):
+            self.grids.append(self._stack(cells, **kw))
             return self.grids[-1]
+
+        def shard(g, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sf = self._shard(g, **kw)
+            torch.cuda.synchronize()
+            self.sharded.append(dict(sf=sf,
+                                     seconds=time.perf_counter() - t0))
+            return sf
+
+        def run(*a, **kw):
+            self.results.append(self._run(*a, **kw))
+            return self.results[-1]
 
         def core(step, state, *, n_warm, n_meas, acc):
             torch.cuda.synchronize()
@@ -1204,12 +1260,14 @@ class LoopProbe:
                 state=out[0]))
             return out
 
-        SW.stack_scenarios = stack
+        SW.stack_scenarios, SW.shard_grid, SW.run_grid = stack, shard, run
         SW.steady_state_core = cc.steady_state_core = core
         return self
 
     def __exit__(self, *exc):
-        self._mods[0].stack_scenarios = self._stack
+        SW = self._mods[0]
+        SW.stack_scenarios, SW.shard_grid = self._stack, self._shard
+        SW.run_grid = self._run
         for mod in self._mods:
             mod.steady_state_core = self._core
 
@@ -1425,6 +1483,348 @@ def sweeps_phase(dev, card):
          churn_grid=churn, records=records,
          seconds=time.perf_counter() - t_phase)
     return records
+
+
+# ------------------------------------------------------------- phase 11
+
+def _grid_run(path, fn):
+    """fn() (a `run_grid` or sweep call) as the path `path`, under a
+    LoopProbe; returns (its result, the probe, wall seconds, peak
+    memory)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with LoopProbe() as probe:
+        out = drive(path, fn)
+    wall = time.perf_counter() - t0
+    return out, probe, wall, torch.cuda.max_memory_allocated()
+
+
+def _grid_timing(path, probe, wall, peak, n_cells, n_flows):
+    """Set-up, ms per grid epoch, cell- and flow-epochs/s, peak memory,
+    the fleet kernels per epoch and a 20-epoch profile of the path's one
+    epoch loop."""
+    check(len(probe.loops) == 1, f"{path}: {len(probe.loops)} epoch loops")
+    loop = probe.loops[0]
+    ep, run_s = loop["epochs"], loop["seconds"]
+    out = dict(epochs=ep, wall_s=wall, setup_s=wall - run_s, run_s=run_s,
+               ms_per_epoch=run_s / ep * 1e3,
+               cell_epochs_per_s=n_cells * ep / run_s,
+               flow_epochs_per_s=n_flows * ep / run_s, peak_mem_bytes=peak,
+               fleet_launches_per_epoch=_fleet_launches(path, ep),
+               profile=_step_profile(loop["step"], loop["state"]))
+    if probe.sharded:
+        out["shard_grid_s"] = probe.sharded[0]["seconds"]
+    return out
+
+
+def _cell(final, i):
+    from repro_torch.fleetsim import sweeps as SW
+    return SW._map(lambda v: v[i], final)
+
+
+def _grid_checks(final, rates, what):
+    """Every cell's state finite, its split rows summing to 1; the
+    largest split-row error."""
+    return max(_check_state(_cell(final, i), rates[i], rates.shape[1],
+                            f"{what} cell {i}")
+               for i in range(rates.shape[0]))
+
+
+def _states_bitwise(a, b) -> bool:
+    import torch
+    for f, v in a._asdict().items():
+        w = getattr(b, f)
+        if hasattr(v, "_fields"):
+            if not _states_bitwise(v, w):
+                return False
+        elif (v is None) != (w is None) or \
+                (v is not None and not torch.equal(v, w)):
+            return False
+    return True
+
+
+def _vs_unsharded(rates, rates0):
+    """Per cell: max |rates - rates0| over the grid's rate scale."""
+    scale = float(rates0.abs().max().clamp(min=1e-30))
+    return [float((r - r0).abs().max()) / scale
+            for r, r0 in zip(rates, rates0)]
+
+
+def sharded_grid_phase(fs, dev, card):
+    """Phase 11 (module docstring); returns the kernel records at the
+    sharded grids' shard 0."""
+    import warnings
+    import torch
+    from repro_torch.fleetsim import links as L
+    from repro_torch.fleetsim import shard as SH
+    from repro_torch.fleetsim import sweeps as SW
+    from repro_torch.scenarios import plan_shards
+
+    t_phase = time.perf_counter()
+    # ---- fat_tree_grid@2x100k:shard2: the main path's fat tree and its
+    # drain what-if (benchmarks/sweep_server.py:122-126), one routing
+    cells = [fs, fs._replace(net=fs.net._replace(drain=fs.net.drain
+                                                 * GRID_DRAIN))]
+    n_cell = fs.net.routes.shape[0]
+    run = dict(n_warm=GRID_WARM, n_meas=GRID_MEAS, seed=0)
+    base = "sweep:fat_tree_grid:pt_cuda"
+    (f0, r0), probe, wall, peak = _grid_run(
+        base, lambda: SW.run_grid(cells, **run))
+    check(L._resolve_backend(probe.grids[0].net, "auto") == "pt_cuda",
+          "unsharded fat-tree grid: not on pt_cuda")
+    runs = {base: _grid_timing(base, probe, wall, peak, 2, 2 * n_cell)}
+    split_err = _grid_checks(f0, r0, base)
+    del probe
+    outs, sfs, paths = {}, {}, {}
+    for ex in ("psum", "nbr"):
+        paths[ex] = path = shard_path("fat_tree_grid", 2, ex, "pt_cuda")
+        if ex == "psum":
+            outs[ex], probe, wall, peak = _grid_run(
+                path, lambda: SW.run_grid(cells, n_shards=2, **run))
+            g, sfs[ex] = probe.grids[0], probe.sharded[0]["sf"]
+        else:
+            # the grid's own exchange is the psum: the neighbor exchange
+            # runs the compiled grid under the other exchange tables
+            sfs[ex] = SH._with_exchange(sfs["psum"], ex)
+            outs[ex], probe, wall, peak = _grid_run(
+                path, lambda: SW._run_sharded(
+                    g, sfs[ex], SW._grid_seeds(2, run["seed"], None),
+                    scheme="uno", n_warm=GRID_WARM, n_meas=GRID_MEAS,
+                    backend="auto"))
+        runs[path] = _grid_timing(path, probe, wall, peak, 2, 2 * n_cell)
+        split_err = max(split_err, _grid_checks(*outs[ex], path))
+        del probe
+    sf = sfs["psum"]
+    check(all(L._resolve_backend(sf.shard_net(s), "auto") == "pt_cuda"
+              for s in range(2)), "sharded fat-tree grid: not on pt_cuda")
+    plan0 = plan_shards(fs.net.routes, fs.net.n_links, 2,
+                        link_tier=fs.link_tier)
+    halo = sf.plan.n_boundary
+    check(halo == 2 * plan0.n_boundary and 0 < halo < sf.plan.n_links,
+          f"grid boundary {halo}, cell's {plan0.n_boundary}")
+    (fp, rp), (fn_, rn) = outs["psum"], outs["nbr"]
+    bitwise = torch.equal(rp, rn) and _states_bitwise(fp, fn_)
+    check(bitwise, "fat-tree grid: psum and nbr differ")
+    errs = _vs_unsharded(rp, r0)
+    check(max(errs) <= GRID_RTOL, f"fat-tree grid vs unsharded: {errs}")
+    records, kerrs = kernel_phase(sf.shard_net(0), dev, None, paths["psum"],
+                                  tag="@fat_tree_grid:shard2", halo=halo)
+    records += [dict(r, path=paths["nbr"]) for r in records]
+    fat_tree = dict(
+        **FAT_TREE, cells=2, drain_whatif=GRID_DRAIN, n_shards=2,
+        plan="cell 0 (link_tier) lifted to the grid", flows=2 * n_cell,
+        links=sf.plan.n_links, n_boundary=halo,
+        cell_n_boundary=plan0.n_boundary,
+        rows_per_shard=sf.plan.rows,
+        segments_per_shard=[lay.path_table.n_segments
+                            for lay in sf.layouts],
+        nbr_width=int(sfs["nbr"].nbr.shape[2]),
+        **_exchange_bytes(sfs["nbr"]), n_warm=GRID_WARM, n_meas=GRID_MEAS,
+        rel_err_vs_unsharded=errs, psum_nbr_bitwise_equal=bitwise,
+        split_row_err=split_err, runs=runs, **kerrs)
+    del outs, f0, r0, fp, rp, fn_, rn, sfs, sf, g
+
+    # ---- fault_grid@8x100k:shard2: phase 10's grid through fault_sweep
+    # on 2 shards, and unsharded, over the same epochs
+    epochs = SHARD_FAULT_WARM + SHARD_FAULT_MEAS
+    span = epochs * SWEEP_DT
+    kw = dict(SWEEP_FAULT, fail_times=(0.2 * span, 0.5 * span),
+              n_warm=SHARD_FAULT_WARM, n_meas=SHARD_FAULT_MEAS, device=dev)
+    twin = "sweep:fault_grid_twin:cuda"
+    res0, probe, wall, peak = _grid_run(twin, lambda: SW.fault_sweep(**kw))
+    f0, r0 = probe.results[0]
+    n_flows = f0.cwnd.numel()
+    runs = {twin: _grid_timing(twin, probe, wall, peak, 8, n_flows)}
+    del probe
+    path = shard_path("fault_grid", 2, "psum", "cuda")
+    with warnings.catch_warnings():
+        # a dumbbell flow's every hop is a hub: the planner deals the
+        # flows round-robin, as the reference's does, and says so
+        warnings.filterwarnings("ignore", message=".*every hop")
+        res1, probe, wall, peak = _grid_run(
+            path, lambda: SW.fault_sweep(n_shards=2, **kw))
+    f1, r1 = probe.results[0]
+    sf = probe.sharded[0]["sf"]
+    runs[path] = _grid_timing(path, probe, wall, peak, 8, n_flows)
+    del probe
+    check(sf.plan.n_boundary == sf.plan.n_links,
+          "sharded fault grid: expected every link boundary")
+    errs = _vs_unsharded(r1, r0)
+    check(max(errs) <= GRID_RTOL, f"fault grid vs unsharded: {errs}")
+    carries = all(torch.equal(getattr(f1.fault, f), getattr(f0.fault, f))
+                  for f in ("epoch", "ge_bad", "key"))
+    rungs = torch.equal(f1.rel.rung, f0.rel.rung)
+    check(carries and rungs, "sharded fault grid: carries or rungs differ")
+    keys = ("util", "jain", "retx_ratio", "rec_ratio", "loss_ratio",
+            "nacks", "nack_lat", "rung_mean", "rates")
+    for k in keys:
+        check(bool(torch.isfinite(res1[k]).all()), f"sharded fault grid {k}")
+    key_errs = {k: float((res1[k].double() - res0[k].double()).abs().max())
+                for k in keys}
+    split_err = max(_grid_checks(f0, r0, twin), _grid_checks(f1, r1, path))
+    recs, kerrs = kernel_phase(sf.shard_net(0), dev, path,
+                               tag="@fault_grid:shard2")
+    records += recs
+    fault = dict(
+        **{k: v for k, v in kw.items() if k != "device"}, cells=8,
+        n_shards=2, plan="round-robin (every hop of a flow is a hub)",
+        flows=n_flows, links=sf.plan.n_links, n_boundary=sf.plan.n_boundary,
+        rows_per_shard=sf.plan.rows, **_exchange_bytes(sf),
+        rel_err_vs_unsharded=errs, output_abs_err_vs_unsharded=key_errs,
+        fault_carries_bitwise=carries, rungs_bitwise=rungs,
+        split_row_err=split_err, runs=runs, **kerrs)
+    emit("sharded_grid", **card, fat_tree_grid=fat_tree, fault_grid=fault,
+         records=records, seconds=time.perf_counter() - t_phase)
+    return records
+
+
+# ------------------------------------------------------------- phase 12
+
+def service_phase(dev, card, records):
+    """Phase 12 (module docstring): the sweep service on a fresh cache
+    directory under the temporary directory, removed afterwards.  Adds to
+    `records` the main path's PathTable kernel records for the cold
+    query's path."""
+    import tempfile
+    import torch
+    from repro_torch.fleetsim import service as SV
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def timed(name, fn, epochs=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = drive(name, fn)
+        torch.cuda.synchronize()
+        rec = dict(seconds=time.perf_counter() - t0)
+        if epochs:
+            rec["fleet_launches_per_epoch"] = _fleet_launches(name, epochs)
+        out[name] = rec
+        return res
+
+    def rates_ok(results, what):
+        for _, r in results:
+            check(bool(torch.isfinite(r).all()) and float(r.sum()) > 0.0,
+                  f"service {what}: rates")
+
+    ep = SVC_WARM + SVC_MEAS
+    with tempfile.TemporaryDirectory(prefix="uno_sweep_cache_") as cache:
+        svc = SV.SweepService(cache_dir=cache, device=dev)
+        cold = "service:cold:fat_tree:pt_cuda"
+
+        def first():
+            t0 = time.perf_counter()
+            fs = svc.scenario("fat_tree", **FAT_TREE)
+            torch.cuda.synchronize()
+            out["scenario_s"] = time.perf_counter() - t0
+            q = SV.SweepQuery(fs, n_warm=SVC_WARM, n_meas=SVC_MEAS)
+            return fs, q, svc.submit([q])
+
+        fs, q, res_cold = timed(cold, first, ep)
+        check(svc.stats()["scenario_cache"]["builds"] == 1, "cold: no build")
+        warm = "service:warm:fat_tree:pt_cuda"
+        res_warm = timed(warm, lambda: svc.submit([q]), ep)
+        check(torch.equal(res_warm[0][1], res_cold[0][1]),
+              "service: warm rates differ from cold")
+        check(svc.stats()["grid_layouts"] == {"built": 1, "reused": 1},
+              f"warm query: {svc.stats()['grid_layouts']}")
+        # a fresh service on the warm directory: the bundle replaces the
+        # spec build, and loads bitwise the arrays that were written
+        t0 = time.perf_counter()
+        fresh = SV.SweepService(cache_dir=cache, device=dev)
+        fs2 = fresh.scenario("fat_tree", **FAT_TREE)
+        torch.cuda.synchronize()
+        out["bundle_load_s"] = time.perf_counter() - t0
+        check(fresh.stats()["scenario_cache"]["disk_hits"] == 1,
+              "bundle load: not a disk hit")
+        same = _states_bitwise(fs2.net, fs.net) and \
+            _states_bitwise(fs2.params, fs.params) and \
+            torch.equal(fs2.is_inter, fs.is_inter) and \
+            (fs2.lb is None) == (fs.lb is None) and \
+            (fs.lb is None or _states_bitwise(fs2.lb, fs.lb))
+        check(same, "service: the bundle did not load bitwise")
+        out["bundle_bytes"] = SV.cache_stats(cache)["bytes"]
+        del fresh, fs2
+        # two batches of four drain what-ifs, one rung-4 batch each: the
+        # first builds the 4-cell grid's layout, the second (other drains,
+        # the same routes) reuses it
+        for name, drains, built in (("whatif4", SVC_DRAINS[0], 1),
+                                    ("whatif4_warm", SVC_DRAINS[1], 0)):
+            before = dict(svc.stats()["grid_layouts"])
+            whatifs = [SV.SweepQuery(
+                (fs.net._replace(drain=fs.net.drain * f), fs.params,
+                 fs.is_inter, fs.lb, fs.churn, fs.rel), seed=i,
+                n_warm=SVC_WARM, n_meas=SVC_MEAS)
+                for i, f in enumerate(drains)]
+            path = f"service:{name}:fat_tree:pt_cuda"
+            batches = svc.stats()["scenario_cache"]["batches"]
+            res = timed(path, lambda: svc.submit(whatifs), ep)
+            rates_ok(res, "what-ifs")
+            check(svc.stats()["scenario_cache"]["batches"] == batches + 1,
+                  "what-ifs: not one batch")
+            lay = svc.stats()["grid_layouts"]
+            out[path].update(
+                queries=len(whatifs), queries_per_s=len(whatifs)
+                / out[path]["seconds"],
+                grid_layouts_built=lay["built"] - before["built"],
+                grid_layouts_reused=lay["reused"] - before["reused"])
+            check(out[path]["grid_layouts_built"] == built,
+                  f"{name}: {out[path]}")
+            del res, whatifs
+        # a mixed dumbbell + fat-tree batch, twice: the second pass hits
+        # every cache (no spec build, no grid layout)
+        db = dict(DUMBBELL)
+        mixed = []
+        for p in (1, 2):
+            before = (dict(svc.stats()["grid_layouts"]),
+                      svc.stats()["scenario_cache"]["builds"])
+            name = f"service:mixed{p}"
+
+            def batch():
+                d = svc.scenario("dumbbell", **db)
+                return svc.submit([
+                    SV.SweepQuery(d, seed=0, n_warm=SVC_WARM,
+                                  n_meas=SVC_MEAS),
+                    SV.SweepQuery(fs, seed=1, n_warm=SVC_WARM,
+                                  n_meas=SVC_MEAS),
+                    SV.SweepQuery(d, seed=2, n_warm=SVC_WARM,
+                                  n_meas=SVC_MEAS)])
+
+            res = timed(name, batch)
+            rates_ok(res, name)
+            lay = svc.stats()["grid_layouts"]
+            out[name].update(
+                spec_builds=svc.stats()["scenario_cache"]["builds"]
+                - before[1],
+                grid_layouts_built=lay["built"] - before[0]["built"],
+                grid_layouts_reused=lay["reused"] - before[0]["reused"],
+                fleet_launches=_fleet_launches(name, 1))
+            mixed.append(res)
+        check(out["service:mixed2"]["spec_builds"] == 0 and
+              out["service:mixed2"]["grid_layouts_built"] == 0,
+              f"mixed batch, second pass: {out['service:mixed2']}")
+        check(all(torch.equal(a[1], b[1]) for a, b in zip(*mixed)),
+              "mixed batch: the two passes differ")
+        stats = svc.stats()
+        del mixed, res, svc
+    stats.pop("cache_dir")
+    main_recs = [r for r in records if r["path"] == MAIN_PATH]
+    check(len(main_recs) == 3, "main path: three PathTable records")
+    records += [dict(r, path=cold) for r in main_recs]
+    emit("service", **card, fat_tree=FAT_TREE, dumbbell=DUMBBELL,
+         n_warm=SVC_WARM, n_meas=SVC_MEAS,
+         drains=[list(d) for d in SVC_DRAINS],
+         cold_s=out[cold]["seconds"], warm_s=out[warm]["seconds"],
+         scenario_build_s=out["scenario_s"],
+         bundle_load_s=out["bundle_load_s"],
+         bundle_bytes=out["bundle_bytes"],
+         whatif4_s=out["service:whatif4:fat_tree:pt_cuda"]["seconds"],
+         whatif4_warm_s=out["service:whatif4_warm:fat_tree:pt_cuda"][
+             "seconds"],
+         runs=out, stats=stats, seconds=time.perf_counter() - t_phase)
 
 
 # ------------------------------------------------------------- phase 7/8
@@ -1758,6 +2158,8 @@ def main() -> int:
     dumbbells(dev, card, fs_mp)
     dynamics_phase(dev, card, records, plan)
     records += sweeps_phase(dev, card)
+    records += sharded_grid_phase(fs, dev, card)
+    service_phase(dev, card, records)
     uno_cfg = get_config(UNO_ARCH)
     uno_records, n_patterns = unorc_kernel_phase(dev, uno_cfg)
     emit("unorc_kernels", records=uno_records, erasure_patterns=n_patterns)

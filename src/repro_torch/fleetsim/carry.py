@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim.faults import FaultCarry, FaultSchedule
-from repro_torch.fleetsim.links import FluidNet, PathTable, RouteLayout
+from repro_torch.fleetsim.links import FluidNet, layout_from_arrays
 from repro_torch.fleetsim.reliability import RelParams, RelState
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
                                         LbParams)
@@ -70,11 +70,7 @@ def scenario_from_arrays(arrays: Mapping, device=None):
     from repro_torch.scenarios.compile_fleetsim import FleetScenario
     dev = resolve_device(device)
     keys = _keys(arrays)
-    pt = _family(arrays, "lay_pt_", PathTable, dev, keys)
-    lay_keys = [k for k in keys if not k.startswith("lay_pt_")]
-    layout = _family(arrays, "lay_", RouteLayout, dev, lay_keys)
-    if layout is not None:
-        layout = layout._replace(path_table=pt)
+    layout = layout_from_arrays(arrays, device=dev)
     net_fields = {f: torch.as_tensor(np.asarray(arrays["net_" + f]),
                                      device=dev)
                   for f in FluidNet._fields

@@ -4,8 +4,8 @@ padded flow -> path -> link hop tensor, and the compiled `RouteLayout` /
 
 The port of ``repro.fleetsim.links``.  The layout and the path table are
 built host-side in numpy exactly as the reference builds them (same stable
-sorts, same block rounding, same np.unique factorization), then moved to
-the device once, so every index array equals the reference's.
+sorts, same block rounding, the same unique-row factorization), then moved
+to the device once, so every index array equals the reference's.
 
 Per-link aggregation (`offered_load`) and the link -> flow gathers have
 four backends (`backend=`):
@@ -172,6 +172,34 @@ def _blocked_csr(sort_key: np.ndarray, sort_val: np.ndarray, n_keys: int,
     return sort_val.reshape(n_chunks, block), ptr
 
 
+def _unique_rows(rows: np.ndarray, n_links: int):
+    """`np.unique(rows, axis=0, return_inverse=True)` of hop-id rows in
+    [-1, n_links): the rows in lexicographic order and each row's index
+    among them.  Runs of columns are read as int64 numbers in base
+    n_links + 1 (hop ids shifted by one, the first hop most significant),
+    as many columns a number as fit in 62 bits, so a lexsort of the
+    numbers orders the rows lexicographically, many times faster than the
+    row-wise unique."""
+    n, width = rows.shape
+    base = n_links + 1
+    per = max(1, int(62 // np.log2(base)))
+    keys = []
+    for lo in range(0, width, per):
+        key = np.zeros(n, np.int64)
+        for j in range(lo, min(lo + per, width)):
+            key = key * base + (rows[:, j].astype(np.int64) + 1)
+        keys.append(key)
+    order = np.lexsort(keys[::-1])          # keys[0] the primary key
+    new = np.ones(n, bool)
+    for key in keys:
+        k = key[order]
+        new[1:] &= k[1:] == k[:-1]
+    new[1:] = ~new[1:]
+    inv = np.empty(n, np.int64)
+    inv[order] = np.cumsum(new) - 1
+    return rows[order[new]], inv
+
+
 def _path_table_np(r: np.ndarray, n_links: int, block: int,
                    min_compress: Optional[float],
                    pad_segments_to: Optional[int] = None,
@@ -197,9 +225,7 @@ def _path_table_np(r: np.ndarray, n_links: int, block: int,
     pre[rows, rank[rows, cols]] = flat[rows, cols]
     rows, cols = np.nonzero(real & ~in_pre)
     suf[rows, rank[rows, cols] - c[rows]] = flat[rows, cols]
-    seg, inv = np.unique(np.concatenate([pre, suf]), axis=0,
-                         return_inverse=True)
-    inv = inv.reshape(-1)
+    seg, inv = _unique_rows(np.concatenate([pre, suf]), n_links)
     u = seg.shape[0]
     pre_id = inv[:n_sub].astype(np.int32)
     suf_id = inv[n_sub:].astype(np.int32)
@@ -325,6 +351,37 @@ def with_layout(net: FluidNet, **kw) -> FluidNet:
     """`net` with a freshly compiled layout attached, on net's device."""
     kw.setdefault("device", net.device)
     return net._replace(layout=compute_layout(net.routes, net.n_links, **kw))
+
+
+def layout_to_arrays(lay: RouteLayout, prefix: str = "lay_") -> dict:
+    """RouteLayout -> {name: host numpy array} for an allow_pickle=False
+    `np.savez`, under the reference's names: `<prefix><field>`, the
+    PathTable's fields under `<prefix>pt_` (absent: a flat layout)."""
+    out = {prefix + f: _np(getattr(lay, f))
+           for f in RouteLayout._fields if f != "path_table"}
+    if lay.path_table is not None:
+        out.update({prefix + "pt_" + f: _np(getattr(lay.path_table, f))
+                    for f in PathTable._fields})
+    return out
+
+
+def layout_from_arrays(arrays, prefix: str = "lay_",
+                       device=None) -> Optional[RouteLayout]:
+    """Inverse of `layout_to_arrays` on `device` (default cuda); `arrays`
+    is any mapping (an open NpzFile).  None when no layout was written.
+    Keys of reference layout fields the port does not hold are ignored,
+    so a reference bundle's layout loads too."""
+    if prefix + "pad_idx" not in arrays:
+        return None
+    dev = resolve_device(device)
+
+    def t(k):
+        return torch.as_tensor(np.asarray(arrays[prefix + k]), device=dev)
+    pt = None
+    if prefix + "pt_pre_id" in arrays:
+        pt = PathTable(**{f: t("pt_" + f) for f in PathTable._fields})
+    return RouteLayout(**{f: t(f) for f in RouteLayout._fields
+                          if f != "path_table"}, path_table=pt)
 
 
 # --------------------------------------------------------------- splits

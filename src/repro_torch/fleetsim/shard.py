@@ -43,6 +43,11 @@ churn key and the fault carry are replicated: the stacked runner draws
 them once per epoch for all its shards (`cc.make_step_halves`' `draw`),
 and every rank of a process group advances its own identical copy.
 
+A grid of identically routed cells (`sweeps.run_grid(n_shards=...)`)
+shards as one scenario under cell 0's plan lifted to the grid
+(`lift_plan`): every cell's boundary links join one trailing tile, and
+each shard's rows stay cell-major.
+
 Not ported: three knobs that exist only for JAX's compiled scan —
 `unroll` (epochs fused per scan step), the executable cache
 (`_compiled`, `cache_stats`, `set_executable_cache_size`) and buffer
@@ -81,6 +86,48 @@ def _contiguous_plan(n_real: int, n_links: int, n_shards: int):
                      n_boundary=n_links, gather=gather, new2old=eye,
                      old2new=eye,
                      owner_ptr=np.zeros(n_shards + 1, np.int32))
+
+
+def lift_plan(plan, n_cells: int, cell_flows: int, cell_links: int):
+    """Cell 0's ShardPlan lifted to a grid of `n_cells` cells stacked
+    block-diagonally (`sweeps.stack_scenarios`: cell b's flows at
+    b·cell_flows, its links at b·cell_links) that all route as cell 0.
+
+    Links: shard 0's private range of every cell, cell-major, then shard
+    1's, ..., then the cells' boundary tails one after another, so the
+    grid's boundary is again the trailing B·n_boundary ids, as K6 and
+    `links.halo_exchange` expect.  Flows: shard s's rows are cell 0's
+    shard-s rows, then cell 1's, ... (padding to B·cell_flows), so each
+    shard's rows stay cell-major: a per-cell table read by
+    `rows.reshape(cells, -1)` (`reliability._rung`) still finds each
+    row's cell, and `churn_map` indexes the grid's (B·F,) cell-major
+    churn draw."""
+    from repro_torch.scenarios.compile_fleetsim import ShardPlan
+    if plan.n_real != cell_flows or plan.n_links != cell_links:
+        raise ValueError(
+            f"plan is for {plan.n_real} flows x {plan.n_links} links, a "
+            f"cell has {cell_flows} x {cell_links}")
+    cells = np.arange(n_cells, dtype=np.int64)
+    g = plan.gather[:, None, :].astype(np.int64)
+    gather = np.where(g < cell_flows, g + cells[:, None] * cell_flows,
+                      n_cells * cell_flows).reshape(plan.n_shards, -1)
+    base = cell_links - plan.n_boundary
+    ptr = plan.owner_ptr
+    ranges = [plan.new2old[ptr[s]:ptr[s + 1]] for s in range(plan.n_shards)]
+    ranges.append(plan.new2old[base:])
+    new2old = np.concatenate(
+        [(r[None, :] + cells[:, None] * cell_links).reshape(-1)
+         for r in ranges]).astype(np.int32)
+    old2new = np.empty(n_cells * cell_links, np.int32)
+    old2new[new2old] = np.arange(n_cells * cell_links, dtype=np.int32)
+    pairs = plan.boundary_pairs
+    return ShardPlan(
+        n_shards=plan.n_shards, n_real=n_cells * cell_flows,
+        n_links=n_cells * cell_links, n_boundary=n_cells * plan.n_boundary,
+        gather=gather.astype(np.int32), new2old=new2old, old2new=old2new,
+        owner_ptr=(n_cells * ptr).astype(np.int32),
+        boundary_pairs=None if pairs is None else np.tile(pairs,
+                                                          (n_cells, 1)))
 
 
 class ShardedFleet(NamedTuple):
@@ -292,6 +339,17 @@ def shard_scenario(net: L.FluidNet, params: FleetParams, *,
                               mean_off=churn.mean_off[gc])
         cmap = gc.to(torch.int32).reshape(n_shards, rows)
 
+    own, nbr = _exchange_tables(plan, exchange, dev)
+    return ShardedFleet(
+        plan=plan, n_shards=n_shards, group=group, net=net_p, layouts=lays,
+        params=params_p, is_inter=ii_p, lb=lb_p, own=own, nbr=nbr,
+        churn=churn_p, churn_map=cmap, rel=rel_p, fault=fault_p)
+
+
+def _exchange_tables(plan, exchange: str, dev):
+    """(own, nbr) of `plan` under `exchange` (`shard_scenario`): the
+    (S, n_links) link-ownership masks and the neighbor table, None under
+    the psum."""
     nbr = None
     if exchange != "psum":
         nbr = neighbor_halo(plan)
@@ -300,11 +358,11 @@ def shard_scenario(net: L.FluidNet, params: FleetParams, *,
                 "exchange='nbr' but the plan's boundary links are not all "
                 "ring-adjacent shard pairs (neighbor_halo); hub-spoke "
                 "relays and straddled multi-shard hubs need the psum")
-
     # link ownership: shard s owns its private range plus (shard 0) any
     # untouched link; the boundary tail goes wholesale to shard 0 under
     # the psum (every shard holds the sum) and link by link to its FIRST
     # toucher under the neighbor exchange (only the touchers hold it)
+    nl = plan.n_links
     iota = np.arange(nl)
     own = (iota >= plan.owner_ptr[:-1, None]) & \
         (iota < plan.owner_ptr[1:, None])
@@ -314,12 +372,19 @@ def shard_scenario(net: L.FluidNet, params: FleetParams, *,
     else:
         own[plan.boundary_pairs[:, 0], base + np.arange(plan.n_boundary)] = \
             True
-    return ShardedFleet(
-        plan=plan, n_shards=n_shards, group=group, net=net_p, layouts=lays,
-        params=params_p, is_inter=ii_p, lb=lb_p,
-        own=torch.as_tensor(own, device=dev),
-        nbr=None if nbr is None else torch.as_tensor(nbr, device=dev),
-        churn=churn_p, churn_map=cmap, rel=rel_p, fault=fault_p)
+    return (torch.as_tensor(own, device=dev),
+            None if nbr is None else torch.as_tensor(nbr, device=dev))
+
+
+def _with_exchange(sf: ShardedFleet, exchange: str) -> ShardedFleet:
+    """`sf` under another boundary exchange ("psum", "nbr" or "auto", as
+    `shard_scenario` takes it), its compiled arrays and layouts shared:
+    an A/B of the two exchanges (the tests, chip_smoke.py) compiles the
+    scenario once."""
+    if exchange not in ("auto", "psum", "nbr"):
+        raise ValueError(f"unknown boundary exchange {exchange!r}")
+    own, nbr = _exchange_tables(sf.plan, exchange, sf.net.device)
+    return sf._replace(own=own, nbr=nbr)
 
 
 def _map_fields(state: FleetState, flow, link) -> FleetState:

@@ -31,14 +31,24 @@ cell's.  Outputs follow the reference's contract: every leaf of the final
 `FleetState` carries a leading cell axis ((B, F, ...), (B, L), the keys
 (B, 2), `fault.epoch` (B,)), and the rates are (B, F).
 
+`run_grid(n_shards=S)` (or `group=`, one shard per rank of a
+`torch.distributed` group) also shards the flow axis of the grid, as the
+reference's `run_grid(mesh=...)` does: cell 0 is planned once
+(`scenarios.plan_shards`, with `link_tier`), the plan is lifted to the
+block-diagonal grid (`shard.lift_plan`: each shard's rows cell-major, the
+B cells' boundary links one common tail) and the grid runs through
+`shard.shard_scenario` + `shard.steady_state_prepared` as one scenario
+would.  The shared plan needs identical routes in every cell; a grid
+whose routes differ warns and runs unsharded, as the reference's does.
+
 `run_grid_streamed` evaluates the grid in fixed-size chunks and yields
 completed cells in submission order.  The five concrete sweeps (fairness,
 load mix, churn, recovery, faults) build their cells on `device`
 (default cuda) and return the reference's keys as tensors.
 
-Not ported here: the sharded grid (the reference's `run_grid(mesh=...)`;
-`run_grid` raises when asked for shards), `unroll` (a `lax.scan` knob with
-no eager counterpart) and `grid_traces` (it counts jit traces).
+Not ported: `unroll` (a `lax.scan` knob with no eager counterpart) and
+`grid_traces` (it counts jit traces; the sweep service counts the grid
+layouts it builds and reuses instead, `service.SweepService.stats`).
 """
 from __future__ import annotations
 
@@ -166,7 +176,7 @@ def _cat(tups, cls):
     return cls(*(torch.cat(vs) for vs in zip(*tups)))
 
 
-def _stack_nets(nets) -> L.FluidNet:
+def _stack_nets(nets, layout=None) -> L.FluidNet:
     net0 = nets[0]
     n_cells, nl = len(nets), net0.n_links
     for n in nets[1:]:
@@ -189,14 +199,15 @@ def _stack_nets(nets) -> L.FluidNet:
     per_link = {f: torch.cat([getattr(n, f) for n in nets])
                 for f in ("cap", "qcap", "ecn_lo", "ecn_hi", "drain",
                           "vcap", "use_phantom")}
-    keep_pt = all(n.layout is not None and n.layout.path_table is not None
-                  for n in nets)
+    if layout is None:
+        keep_pt = all(n.layout is not None and
+                      n.layout.path_table is not None for n in nets)
+        layout = L.compute_layout(routes, n_cells * nl, path_table=keep_pt,
+                                  device=net0.device)
     p_loss = None if net0.p_loss is None else \
         torch.cat([n.p_loss for n in nets])
-    return L.FluidNet(
-        **per_link, routes=routes, dt=net0.dt, p_loss=p_loss,
-        layout=L.compute_layout(routes, n_cells * nl, path_table=keep_pt,
-                                device=net0.device))
+    return L.FluidNet(**per_link, routes=routes, dt=net0.dt, p_loss=p_loss,
+                      layout=layout or None)
 
 
 def _stack_rel(rels) -> RelParams:
@@ -244,7 +255,7 @@ def _stack_faults(faults, n_links: int) -> FaultSchedule:
         ge_link=(out.ge_link + cell_g * n_links).to(torch.int32))
 
 
-def stack_scenarios(scenarios: Sequence) -> Grid:
+def stack_scenarios(scenarios: Sequence, *, layout=None) -> Grid:
     """Stack same-shape scenarios into one `Grid` (module docstring).
 
     The LB / churn / reliability / fault axes must each be present on all
@@ -252,7 +263,12 @@ def stack_scenarios(scenarios: Sequence) -> Grid:
     events, see `fault_sweep`); the cells must share routes' shape, link
     count, `dt` and the presence of `p_loss`, fault event counts and EC
     ladder lengths.  Per-cell PathTables survive only when every cell
-    carries one of one shape (`_strip_unstackable_path_tables`)."""
+    carries one of one shape (`_strip_unstackable_path_tables`).
+
+    `layout`: None compiles the block-diagonal RouteLayout; a RouteLayout
+    built earlier for the same cells' routes is attached as given (the
+    sweep service's memo); False attaches none (the sharded grid compiles
+    one per shard)."""
     cells = [_norm_scenario(s) for s in scenarios]
     if not cells:
         raise ValueError("stack_scenarios: no scenarios")
@@ -263,7 +279,7 @@ def stack_scenarios(scenarios: Sequence) -> Grid:
     inters = [torch.zeros(n_flows, dtype=torch.bool, device=nets[0].device)
               if ii is None else ii for ii in inters]
     return Grid(
-        net=_stack_nets(nets), params=_cat(params, FleetParams),
+        net=_stack_nets(nets, layout), params=_cat(params, FleetParams),
         is_inter=torch.cat(inters),
         lb=None if lbs[0] is None else _cat(lbs, LbParams),
         churn=None if churns[0] is None else _cat(churns, ChurnParams),
@@ -311,11 +327,10 @@ def _unstack(g: Grid, st: FleetState) -> FleetState:
         key=st.key, fault=fault)
 
 
-def _run_batch(cells, seeds: np.ndarray, scheme: str, n_warm: int,
-               n_meas: int, backend: str):
-    """One batch of cells of one `dt`: init per cell, the steady-state
-    loop over the batched step; (final, rates (B, F))."""
-    g = stack_scenarios(cells)
+def run_stacked(g: Grid, seeds: np.ndarray, *, scheme: str = "uno",
+                n_warm: int, n_meas: int, backend: str = "auto"):
+    """One stacked grid of one `dt` on one device: init per cell, the
+    steady-state loop over the batched step; (final, rates (B, F))."""
     state0 = init_state(g.params, g.net.n_links, n_paths=g.net.n_paths,
                         split0=L.uniform_split(g.net), seed=seeds,
                         rel=g.rel, fault=g.fault)
@@ -328,10 +343,51 @@ def _run_batch(cells, seeds: np.ndarray, scheme: str, n_warm: int,
     return _unstack(g, final), rates.reshape(g.n_cells, g.cell_flows)
 
 
+def shard_grid(g: Grid, *, n_shards: Optional[int] = None, group=None,
+               link_tier=None):
+    """The stacked grid `g` (its cells routed identically, stacked with
+    `layout=False`) compiled against cell 0's plan lifted to the grid
+    (`shard.lift_plan`): a `shard.ShardedFleet` over `n_shards` shards,
+    or over the ranks of `group`, its boundary exchanged by a psum, as
+    the reference's grid does.  Cell 0 is planned as the reference plans
+    it: `link_tier` feeds the planner, no DC order, seed 0."""
+    from repro_torch.fleetsim import shard as SH
+    from repro_torch.scenarios.compile_fleetsim import plan_shards
+    size = n_shards
+    if group is not None:
+        import torch.distributed as dist
+        size = dist.get_world_size(group)
+    if size is None:
+        raise ValueError("give n_shards or a process group")
+    f, nl = g.cell_flows, g.cell_links
+    cell0 = L._routes3(g.net)[:f].cpu().numpy()
+    plan = plan_shards(cell0, nl, size, link_tier=link_tier)
+    return SH.shard_scenario(
+        g.net, g.params, is_inter=g.is_inter, lb=g.lb, churn=g.churn,
+        rel=g.rel, fault=g.fault, n_shards=n_shards, group=group,
+        plan=SH.lift_plan(plan, g.n_cells, f, nl), exchange="psum")
+
+
+def _run_sharded(g: Grid, sf, seeds: np.ndarray, *, scheme: str,
+                 n_warm: int, n_meas: int, backend: str):
+    """`run_stacked` on `sf`, the grid `g` compiled by `shard_grid`."""
+    from repro_torch.fleetsim import shard as SH
+    final, rates = SH.steady_state_prepared(
+        sf, n_warm=n_warm, n_meas=n_meas, scheme=scheme, backend=backend,
+        seed=seeds)
+    return _unstack(g, final), rates.reshape(g.n_cells, g.cell_flows)
+
+
+def _same_routes(cells) -> bool:
+    r0 = cells[0][0].routes
+    return all(c[0].routes.shape == r0.shape and torch.equal(c[0].routes, r0)
+               for c in cells[1:])
+
+
 def run_grid(scenarios: Sequence, *, scheme: str = "uno",
              n_warm: int = 50_000, n_meas: int = 10_000, seed: int = 0,
              seeds=None, backend: str = "auto",
-             n_shards: Optional[int] = None):
+             n_shards: Optional[int] = None, group=None, link_tier=None):
     """Sweep all scenarios as batched epochs, on the scenarios' device.
 
     Returns (final_states, rates): each leaf carries a leading scenario
@@ -341,23 +397,46 @@ def run_grid(scenarios: Sequence, *, scheme: str = "uno",
     grid it rides in.  Cells of equal `dt` step as one batch (all of
     them, in the concrete sweeps); several `dt` values run one batch each,
     in order of first appearance, and the results come back in cell
-    order.  `n_shards` (the sharded grid) is not ported yet and
-    raises."""
-    if n_shards is not None:
-        raise NotImplementedError(
-            "run_grid: the sharded grid is not ported yet; drop n_shards "
-            "to run the grid on one device")
+    order.
+
+    `n_shards` (or a `torch.distributed` `group`, one shard per rank)
+    shards the flow axis of every batch under cell 0's plan
+    (`shard_grid`); `link_tier` feeds the planner, by default the first
+    FleetScenario cell's.  The shards' boundary is exchanged by a psum,
+    as the reference's grid does.  Cells whose routes differ cannot share
+    a plan: the grid then warns and runs unsharded.  Explicit `seeds` are
+    honoured on both paths."""
     scenarios = list(scenarios)
     cells = [_norm_scenario(s) for s in scenarios]
     if not cells:
         raise ValueError("run_grid: no scenarios")
     _check_axes(cells)
     sd = _grid_seeds(len(cells), seed, seeds)
+    sharded = n_shards is not None or group is not None
+    if sharded and not _same_routes(cells):
+        warnings.warn(
+            "run_grid(n_shards=...) needs identical routes across grid "
+            "cells to share one ShardPlan; running the grid unsharded",
+            RuntimeWarning, stacklevel=2)
+        sharded = False
+    if sharded and link_tier is None:
+        link_tier = next((s.link_tier for s in scenarios
+                          if getattr(s, "link_tier", None) is not None),
+                         None)
+    run = dict(scheme=scheme, n_warm=n_warm, n_meas=n_meas, backend=backend)
     batches: dict = {}
     for i, c in enumerate(cells):
         batches.setdefault(float(c[0].dt), []).append(i)
-    outs = [_run_batch([cells[i] for i in idx], sd[idx], scheme, n_warm,
-                       n_meas, backend) for idx in batches.values()]
+    outs = []
+    for idx in batches.values():
+        batch = [cells[i] for i in idx]
+        if sharded:
+            g = stack_scenarios(batch, layout=False)
+            sf = shard_grid(g, n_shards=n_shards, group=group,
+                            link_tier=link_tier)
+            outs.append(_run_sharded(g, sf, sd[idx], **run))
+        else:
+            outs.append(run_stacked(stack_scenarios(batch), sd[idx], **run))
     if len(outs) == 1:
         return outs[0]
     order = torch.as_tensor(np.argsort(np.concatenate(
@@ -578,8 +657,9 @@ def recovery_sweep(overloads: Sequence[float],
                    rate: float = L.RATE_100G, intra_rtt: float = 14 * US,
                    inter_rtt: float = 2 * L.MS, qcap: float = 64 * 1024,
                    scheme: str = "uno", n_warm: int = 20_000,
-                   n_meas: int = 10_000, seed: int = 0,
-                   device=None) -> dict:
+                   n_meas: int = 10_000, seed: int = 0, device=None,
+                   n_shards: Optional[int] = None, group=None,
+                   link_tier=None) -> dict:
     """Loss-recovery heatmap over (overload x EC geometry x NACK
     debounce) on the lossy inter-DC dumbbell, its downlink capacity
     scaled to rate / overload.  `ec_configs` are (k, r) pairs,
@@ -588,7 +668,8 @@ def recovery_sweep(overloads: Sequence[float],
     len(debounce_rtts)) tensors 'util' (goodput / scaled bottleneck
     capacity), 'jain', 'retx_ratio', 'rec_ratio', 'loss_ratio', 'nacks',
     'nack_lat', 'rates', the axes, and 'rel_config', the resolved
-    reliability knobs."""
+    reliability knobs.  `n_shards` / `group` / `link_tier` shard the
+    grid's flow axis (`run_grid`; every cell routes alike)."""
     from repro_torch.fleetsim.reliability import make_rel_params
     dev = resolve_device(device)
     base = _lossy_dumbbell(n_inter, rate, intra_rtt, inter_rtt, qcap, seed,
@@ -616,7 +697,8 @@ def recovery_sweep(overloads: Sequence[float],
                 scen.append((net, base.params, base.is_inter, base.lb,
                              base.churn, rels[(tuple(ec), float(deb))]))
     final, rates = run_grid(scen, scheme=scheme, n_warm=n_warm,
-                            n_meas=n_meas, seed=seed)
+                            n_meas=n_meas, seed=seed, n_shards=n_shards,
+                            group=group, link_tier=link_tier)
     loads = torch.repeat_interleave(
         _axis([float(x) for x in overloads], dev),
         len(ec_configs) * len(debounce_rtts))
@@ -649,7 +731,8 @@ def fault_sweep(fail_times: Sequence[float],
                 burst_loss: float = 2e-2, burst_corr: float = 0.3,
                 mean_burst_len: float = 3.0, scheme: str = "uno",
                 n_warm: int = 20_000, n_meas: int = 10_000, seed: int = 0,
-                device=None) -> dict:
+                device=None, n_shards: Optional[int] = None, group=None,
+                link_tier=None) -> dict:
     """Fault-response grid over (fail time x fault kind x EC policy) on
     the recovery sweep's dumbbell, with ONE scheduled fault on the
     bottleneck downlink per cell: a `fault_rtts`-RTT window from
@@ -665,7 +748,9 @@ def fault_sweep(fail_times: Sequence[float],
     static EC); shorter ladders are padded by repeating their last rung.
     Returns (len(fail_times), len(fault_kinds), len(ec_policies))
     tensors: the recovery_sweep metrics plus 'rung_mean' (mean final
-    rung), the axes, and 'fault_config', the resolved fault knobs."""
+    rung), the axes, and 'fault_config', the resolved fault knobs.
+    `n_shards` / `group` / `link_tier` shard the grid's flow axis
+    (`run_grid`; every cell routes alike)."""
     dev = resolve_device(device)
     scen, period = _fault_cells(
         fail_times, fault_kinds, ec_policies, n_inter=n_inter, rate=rate,
@@ -676,7 +761,8 @@ def fault_sweep(fail_times: Sequence[float],
         mean_burst_len=mean_burst_len, seed=seed, device=dev)
     shape = (len(fail_times), len(fault_kinds), len(ec_policies))
     final, rates = run_grid(scen, scheme=scheme, n_warm=n_warm,
-                            n_meas=n_meas, seed=seed)
+                            n_meas=n_meas, seed=seed, n_shards=n_shards,
+                            group=group, link_tier=link_tier)
     return {
         "fail_times": _axis(fail_times, dev),
         "fault_kinds": tuple(fault_kinds),

@@ -13,7 +13,8 @@ from repro_torch.scenarios.multi_dc import (MESHES, MULTI_DC_WORKLOADS,
 from repro_torch.scenarios.spec import (FAULT_KINDS, ChurnSpec, FaultSpec,
                                         FlowGroup, LbSpec, LinkSpec, Path,
                                         PathSet, RelSpec, Scenario,
-                                        dumbbell_scenario)
+                                        dumbbell_scenario, fingerprint,
+                                        spec_fingerprint)
 from repro_torch.scenarios.topology import (MultiDCFatTree, TwoDCFatTree,
                                             wan_mesh_pairs)
 
@@ -25,6 +26,6 @@ __all__ = [
     "MESHES", "MULTI_DC_WORKLOADS", "link_dcs", "multi_dc_spec",
     "FAULT_KINDS", "ChurnSpec", "FaultSpec", "FlowGroup", "LbSpec",
     "LinkSpec", "Path", "PathSet", "RelSpec", "Scenario",
-    "dumbbell_scenario",
+    "dumbbell_scenario", "fingerprint", "spec_fingerprint",
     "MultiDCFatTree", "TwoDCFatTree", "wan_mesh_pairs",
 ]

@@ -7,12 +7,16 @@ the flow ordering (groups in declaration order, flows in index order) are
 the reference's, so one spec compiles to the same arrays in both packages.
 A group's ``RelSpec`` compiles to the reliability machine and the
 spec's ``FaultSpec``s to the fault schedule
-(`repro_torch.scenarios.compile_fleetsim`).
+(`repro_torch.scenarios.compile_fleetsim`).  `fingerprint` is the
+reference's content hash of a spec or of a builder's kwargs, string for
+string.
 
 Units follow the repo convention: ns / bytes / bytes-per-ns.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 from typing import NamedTuple, Optional, Tuple
 
 GBPS = 0.125               # bytes per ns per Gbit/s
@@ -196,6 +200,42 @@ class Scenario(NamedTuple):
                     f"{self.name}: flap fault on {f.link!r} needs a "
                     f"positive period")
         return self
+
+
+# -------------------------------------------------------------- fingerprint
+
+def _canonical(obj):
+    """Nested spec value -> a JSON-stable structure: NamedTuples tagged
+    with their class name (a RelSpec never collides with an equal plain
+    tuple), dicts sorted by key, tuples and lists as lists.  Only
+    str / int / float / bool / None leaves are accepted: hash the spec
+    that built an array, not the array."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return ["#" + type(obj).__name__] + [_canonical(v) for v in obj]
+    if isinstance(obj, (tuple, list)):
+        return [_canonical(v) for v in obj]
+    if isinstance(obj, dict):
+        return {str(k): _canonical(v) for k, v in sorted(obj.items())}
+    if obj is None or isinstance(obj, (str, int, float, bool)):
+        return obj
+    raise TypeError(f"unfingerprintable spec value {obj!r} "
+                    f"({type(obj).__name__})")
+
+
+def fingerprint(obj, *extra) -> str:
+    """Deterministic content hash (20 hex digits of a SHA-256) of a nested
+    spec structure, a builder's kwargs or both; `extra` tokens (a cache
+    version) fold into the digest.  Equal to the reference's string for
+    string: the same JSON (sorted keys, no spaces) of the same canonical
+    form."""
+    payload = json.dumps([_canonical(obj), [_canonical(e) for e in extra]],
+                         sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(payload.encode()).hexdigest()[:20]
+
+
+def spec_fingerprint(spec: Scenario, *extra) -> str:
+    """`fingerprint` of a Scenario."""
+    return fingerprint(spec, *extra)
 
 
 def dumbbell_scenario(n_intra: int, n_inter: int, *,

@@ -1,7 +1,9 @@
 """K2 (the fleet link -> flow gathers), K3 (the UnoRC GF(2^8) product)
 and K5 (the UnoRC dequant) on the card, against their plain versions,
-bitwise; and K1 / K2 flat at the shapes of a sweep grid (8 x 100k-flow
-dumbbells as one block-diagonal net).
+bitwise; K1 / K2 flat at the shapes of a sweep grid (8 x 100k-flow
+dumbbells as one block-diagonal net); and K6, K1 stage 1 and the
+PathTable gathers at shard 0 of the sharded grid (two k=8, 100k-flow fat
+trees under cell 0's plan lifted to the grid).
 
 This file imports no JAX, so that it runs on the machine with the card:
 
@@ -198,3 +200,106 @@ def test_grid_k1_k2_flat_match_plain_versions_on_card(fault_grid_net):
     out = _no_sync(lambda: fleet_cuda.link_gathers(lay.pad_idx, *vals))
     _equal(out, TK.link_gathers_ref(lay.pad_idx, *vals), "K2 at the grid")
     _equal(fleet_cuda.link_gathers(lay.pad_idx, *vals), out, "K2 twice")
+
+
+@pytest.fixture(scope="module")
+def fat_tree_grid_shard():
+    """Shard 0 of the sharded drain what-if grid: two cells of the k=8,
+    100k-flow fat tree on 2 shards under cell 0's plan lifted to the grid
+    (`sweeps.shard_grid`), its PathTable and its boundary count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.fleetsim import sweeps
+    from repro_torch.scenarios import fat_tree_spec, to_fleetsim
+    fs = to_fleetsim(fat_tree_spec(k=8, n_wan=8, n_flows=100_000,
+                                   n_paths=8, seed=1), device="cuda")
+    cells = [fs, fs._replace(net=fs.net._replace(drain=fs.net.drain * 0.9))]
+    sf = sweeps.shard_grid(sweeps.stack_scenarios(cells, layout=False),
+                           n_shards=2, link_tier=fs.link_tier)
+    net = sf.shard_net(0)
+    assert net.layout.path_table is not None
+    return net, sf.plan.n_boundary
+
+
+def _grid_sub(net, seed):
+    lay = net.layout
+    n, p, _ = lay.pad_idx.shape
+    g = torch.Generator(device=net.device).manual_seed(seed)
+    rates = torch.rand(n, device=net.device, generator=g) * 12.5
+    split = TL.normalize_split(torch.rand(n, p, device=net.device,
+                                          generator=g), lay.path_mask)
+    return fleet_cuda.sub_vals_ext(rates[:, None] * split), g
+
+
+@pytest.mark.gpu
+def test_lifted_grid_k6_matches_plain_versions_on_card(fat_tree_grid_shard):
+    """K6 at the lifted grid's shard (boundary = 2 x the cell's): the
+    flat CSR and PathTable stage 2, each tile pair within 1e-6 per link
+    of the float64 plain sum and bitwise K1 on the same CSR, bitwise the
+    tiled plain version on integer values; two runs equal; no host
+    sync."""
+    net, halo = fat_tree_grid_shard
+    lay, pt = net.layout, net.layout.path_table
+    assert 0 < halo < net.n_links and halo % 2 == 0
+    vals, g = _grid_sub(net, 19)
+    seg = fleet_cuda.path_rates(pt, vals[:-1].reshape(lay.path_mask.shape))
+    for use, gather, ptr, v in (
+            ("flat", lay.sort_sub, lay.link_ptr, vals),
+            ("pt_stage2", pt.lcsr_gather.reshape(-1), pt.llink_ptr, seg)):
+        priv, bnd = _no_sync(lambda: fleet_cuda.segment_sum_tiles(
+            v, gather, ptr, halo, use=use))
+        k1 = fleet_cuda.segment_sum(v, gather, ptr, use=use)
+        k = ptr.shape[0] - 2
+        got = torch.cat([priv, bnd])
+        truth = TK.csr_segment_sum_ref(v.double(), gather, ptr)[:k]
+        nz = truth != 0
+        assert bool((got[:k][~nz] == 0).all()), use
+        assert float(((got[:k][nz].double() - truth[nz]).abs()
+                      / truth[nz].abs()).max()) <= 1e-6, use
+        assert float(bnd[-1]) == 0.0, use
+        assert torch.equal(got[:k], k1[:k]), use
+        again = fleet_cuda.segment_sum_tiles(v, gather, ptr, halo, use=use)
+        assert torch.equal(torch.cat(again), got), use
+        v_int = torch.randint(0, 16, v.shape, generator=g, device=v.device,
+                              dtype=torch.int32).float()
+        assert torch.equal(
+            torch.cat(fleet_cuda.segment_sum_tiles(v_int, gather, ptr,
+                                                   halo, use=use)),
+            TK.csr_segment_sum_tiled_ref(v_int, gather, ptr)), use
+
+
+@pytest.mark.gpu
+def test_lifted_grid_k1_pt_gathers_match_plain_versions_on_card(
+        fat_tree_grid_shard):
+    """K1 stage 1 within 1e-6 per segment of the float64 plain sum and
+    bitwise the tiled plain version on integer values; `uno_pt_gathers`
+    bitwise its plain version; two runs equal; no host sync."""
+    net, _ = fat_tree_grid_shard
+    pt = net.layout.path_table
+    vals, g = _grid_sub(net, 23)
+    gather = pt.seg_gather.reshape(-1)
+    got = _no_sync(lambda: fleet_cuda.segment_sum(vals, gather, pt.seg_ptr,
+                                                  use="pt_stage1"))
+    k = pt.seg_ptr.shape[0] - 2
+    truth = TK.csr_segment_sum_ref(vals.double(), gather, pt.seg_ptr)[:k]
+    nz = truth != 0
+    assert bool((got[:k][~nz] == 0).all())
+    assert float(((got[:k][nz].double() - truth[nz]).abs()
+                  / truth[nz].abs()).max()) <= 1e-6
+    assert torch.equal(fleet_cuda.segment_sum(vals, gather, pt.seg_ptr,
+                                              use="pt_stage1"), got)
+    v_int = torch.randint(0, 16, vals.shape, generator=g, device=vals.device,
+                          dtype=torch.int32).float()
+    assert torch.equal(
+        fleet_cuda.segment_sum(v_int, gather, pt.seg_ptr, use="pt_stage1"),
+        TK.csr_segment_sum_tiled_ref(v_int, gather, pt.seg_ptr))
+    nl = net.n_links
+    link_vals = (0.05 + 0.95 * torch.rand(nl, device=vals.device,
+                                          generator=g),
+                 1.0 - 0.05 * torch.rand(nl, device=vals.device, generator=g),
+                 1_000.0 * torch.rand(nl, device=vals.device, generator=g))
+    out = _no_sync(lambda: fleet_cuda.path_table_gathers(pt, *link_vals))
+    _equal(out, TK.pt_gathers_ref(pt.pre_id, pt.suf_id, pt.seg_idx,
+                                  *link_vals), "pt_gathers at the grid")
+    _equal(fleet_cuda.path_table_gathers(pt, *link_vals), out,
+           "pt_gathers twice")

@@ -341,3 +341,28 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="devices"):
         fleet_cuda.segment_sum(vals, torch.zeros(2, dtype=torch.int32),
                                ptr.to("meta"))
+
+
+@pytest.mark.parametrize("n_links,max_hops", [(9, 4), (40, 9),
+                                              (3_000, 9), (20_000, 9)])
+def test_path_table_unique_rows_match_reference(n_links, max_hops):
+    """The PathTable's row dedup (`links._unique_rows`: a lexsort of each
+    row read as int64 numbers of at most 62 bits) gives
+    `np.unique(axis=0)`'s rows and inverse, and the whole table the
+    reference's, bitwise, on both sides of the 62-bit edge (a 5-hop
+    segment over 20,000 links needs two numbers)."""
+    rng = np.random.default_rng(n_links + max_hops)
+    routes = rng.integers(-1, n_links, size=(600, 3, max_hops))
+    routes[:, 0, 0] = rng.integers(0, n_links, size=600)
+    routes[1::4] = routes[2::4]                 # shared segments
+    routes = routes.astype(np.int32)
+    rows = routes.reshape(-1, max_hops)[:, :(max_hops + 1) // 2]
+    seg, inv = TL._unique_rows(rows, n_links)
+    want, want_inv = np.unique(rows, axis=0, return_inverse=True)
+    np.testing.assert_array_equal(seg, want)
+    np.testing.assert_array_equal(inv, want_inv.reshape(-1))
+    ref = RL.compute_path_table(routes, n_links)
+    got = TL.compute_path_table(routes, n_links, device="cpu")
+    for f in RL.PathTable._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)

@@ -23,7 +23,9 @@ reference vmaps one simulation over the stacked cells.  Held here:
   * a grid epoch makes as many threefry2x32 calls and fleet-kernel calls
     as one cell's, whatever B;
   * the refusals: mixed axes, mismatched PathTables (warned, flat),
-    unknown fault kinds, differing ladder lengths, shards.
+    unknown fault kinds, differing ladder lengths, a sharded grid with
+    no shard count (`tests/test_torch_sharded_grid.py` holds the
+    sharded grid).
 
 The reference runs under `jax.jit` (its `run_grid` jits itself)."""
 import numpy as np
@@ -395,8 +397,9 @@ def test_mixed_axes_raise(axis):
 
 
 def test_stack_refusals():
-    """Differing ladder lengths, fault event counts or shapes; shards;
-    an empty grid."""
+    """Differing ladder lengths, fault event counts or shapes; a sharded
+    grid given neither a shard count nor a process group; an empty
+    grid."""
     a = _tiny(TS, inter_rel=TS.RelSpec(ladder=((8, 1), (8, 2))))
     b = _tiny(TS, inter_rel=TS.RelSpec(ladder=((8, 1), (8, 2), (8, 4))))
     with pytest.raises(ValueError, match="ladder"):
@@ -409,8 +412,8 @@ def test_stack_refusals():
     with pytest.raises(ValueError, match="shape"):
         TW.stack_scenarios([_tiny(TS), TS.to_fleetsim(
             TS.dumbbell_scenario(3, 2), device="cpu")])
-    with pytest.raises(NotImplementedError, match="sharded grid"):
-        TW.run_grid([_tiny(TS)], n_shards=2, n_warm=1, n_meas=1)
+    with pytest.raises(ValueError, match="n_shards or a process group"):
+        TW.shard_grid(TW.stack_scenarios([_tiny(TS)] * 2, layout=False))
     with pytest.raises(ValueError):
         TW.run_grid([], n_warm=1, n_meas=1)
 
