@@ -141,8 +141,34 @@ Phases, each printing one JSON line:
                rung-4 batch (its layout built), four other drains (the
                same routes: the layout reused), and a mixed 100k-dumbbell + fat-tree batch
                twice (the second pass: 0 spec builds, 0 layout builds).
+ 13. train — (run after phase 8) smollm-135m at full width (30 layers,
+               d_model 576, vocab 49,152; seeded random weights), a global
+               batch of 8 x 1,024 tokens from `synth_batch(seed=0)`,
+               AdamW: the baseline step (`train:smollm-135m:base`, no
+               kernel) and the Uno step at p = 2 and 4 pods on the card
+               (`train:smollm-135m:p{2,4}:cuda`: K3 encode and decode, K4
+               and K5 inside every step, each launch count checked), 3
+               warm-up and 20 timed steps each from the same seeded
+               state: ms/step, tokens/s, peak memory, the sync's share of
+               the step (CUDA events around `uno_sync`, and the device
+               time of the sync alone over that of a step from
+               `torch.profiler`); the loss finite and falling (the
+               first batch's loss under the trained params below step
+               0's), every
+               step's Uno loss within 1e-2 of the baseline's and the
+               params after step 1 within 5e-4 (the reference's bars,
+               tests/test_collectives.py:52-53); `sync_and_update` on the
+               kernels bitwise the plain backend on the same stacked
+               gradients; `torch.addcmul` (AdamW's fused multiply-add)
+               one rounding and `torch.sqrt` correctly rounded on the
+               card; and a restart drill (`ft.Supervisor`, checkpoints
+               every 5 steps, `fail_at(12)`, a fresh supervisor resumes:
+               the restored state bitwise the one saved at step 9, the
+               resumed losses within 1e-3 of the timed p = 2 run's over
+               the same steps; save and restore seconds, checkpoint
+               bytes).
 
-Every path that phases 4 to 6 and 8 to 12 drive runs with the launch
+Every path that phases 4 to 6, 8 to 12 and 13 drive runs with the launch
 counts zeroed just before it and read just after it; each kernel record
 carries the count of the path it belongs to (`path`), and a path's
 kernel that was never launched in it fails the run.  The comparisons of
@@ -156,6 +182,7 @@ to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -232,6 +259,16 @@ GRID_RTOL = 1e-5    # x the rate scale: the reference's sharded-grid bar
 # service: the main path's fat tree through SweepService on a fresh cache
 SVC_WARM, SVC_MEAS = 200, 100
 SVC_DRAINS = ((0.8, 0.9, 1.0, 1.1), (0.7, 0.85, 0.95, 1.2))
+# train: smollm-135m at full width, a global batch of 8 x 1,024 tokens
+# from synth_batch(seed=0), the baseline step and the Uno step at each
+# pod count of UNO_PODS from the same seeded state; the reference's bars
+# between them (tests/test_collectives.py:52-53); a restart drill
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_WARM, TRAIN_STEPS = 3, 20
+TRAIN_RUN = dict(learning_rate=3e-4, warmup_steps=10)
+TRAIN_LOSS_ATOL, TRAIN_PARAM_ATOL = 1e-2, 5e-4
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT, TRAIN_DRILL_STEPS = 5, 12, 15
+TRAIN_RESUME_ATOL = 1e-3
 
 RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
@@ -1833,6 +1870,20 @@ def uno_path(p: int, backend: str = "cuda") -> str:
     return f"uno_sync:{UNO_ARCH}:p{p}:{backend}"
 
 
+def sync_launches(run, p: int) -> dict:
+    """The UnoRC kernel launches of one sync at p pods: one protected send
+    per chunk at p = 2 (the pairwise mean, K5 fused with the add), 2 (p -
+    1) per chunk on the ring (half of them adds, half plain dequants)."""
+    sends = run.uno_chunks * (1 if p == 2 else 2 * (p - 1))
+    want = {"quant_int8": sends, "gf_matmul/encode": sends,
+            "gf_matmul/decode": sends}
+    if p == 2:
+        want["dequant_int8/acc"] = sends
+    else:
+        want["dequant_int8/acc"] = want["dequant_int8"] = sends // 2
+    return want
+
+
 def uno_chunk_len(n_params: int, run) -> int:
     """One chunk of the sync's flat vector: padded to uno_chunks x
     uno_ec_data x 256, as `_pod_ring_psum` pads it."""
@@ -2022,12 +2073,7 @@ def unorc_sync_phase(dev, card, cfg, n_syncs: int = UNO_SYNCS):
         out_plain = drive(uno_path(p, "plain"), lambda: plain(stacked),
                           plain=True)
         sends = run.uno_chunks * (1 if p == 2 else 2 * (p - 1))
-        want = {"quant_int8": sends, "gf_matmul/encode": sends,
-                "gf_matmul/decode": sends}
-        if p == 2:
-            want["dequant_int8/acc"] = sends
-        else:
-            want["dequant_int8/acc"] = want["dequant_int8"] = sends // 2
+        want = sync_launches(run, p)
         check(PATHS[uno_path(p)] == want,
               f"{uno_path(p)} launched {PATHS[uno_path(p)]}, want {want}")
         leaves = P.flatten(out)[0]
@@ -2095,6 +2141,376 @@ def unorc_sync_phase(dev, card, cfg, n_syncs: int = UNO_SYNCS):
     emit("unorc_sync", **card, runs=out_runs,
          dci_bytes_raw=raw, dci_bytes_uno=int(ec),
          dci_compression_x=raw / ec)
+
+
+# ------------------------------------------------------------- phase 13
+
+def train_path(p: int) -> str:
+    return f"train:{UNO_ARCH}:p{p}:cuda"
+
+
+def _train_batches(cfg, dev, n, start=0):
+    from repro_torch.data import synth_batch
+    return [{k: v.to(dev) for k, v in synth_batch(
+        cfg, start + i, TRAIN_BATCH, TRAIN_SEQ, seed=0).items()}
+        for i in range(n)]
+
+
+def _train_run(step, state, batches):
+    """Every batch through `step` (step_idx = its index), one host-clock
+    time per step to a synchronize; returns the state, the losses, the
+    seconds per step and the params after step 1."""
+    import torch
+    from repro_torch.models import params as P
+    losses, secs, snap = [], [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i == 1:
+            snap = [t.clone() for t in P.flatten(state["params"])[0]]
+    return state, losses, secs, snap
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    from repro_torch.models import params as P
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(P.flatten(a)[0], P.flatten(b)[0]))
+
+
+def _clone(tree):
+    from repro_torch.models import params as P
+    leaves, treedef = P.flatten(tree)
+    return P.unflatten(treedef, [t.clone() for t in leaves])
+
+
+def _fma_on_card(dev) -> dict:
+    """The port's AdamW contracts as XLA does: `optim.fma32`
+    (torch.addcmul) must round once on the card, and `_sqrt32` be the
+    correctly rounded root; both against their float64 definitions,
+    on 16M random triples and on ties a second rounding breaks."""
+    import torch
+    from repro_torch import optim
+    g = torch.Generator(device=dev).manual_seed(7)
+    a, b, c = (torch.randn(1 << 24, device=dev, generator=g)
+               for _ in range(3))
+    k = torch.tensor([0.0, 5.0, -7.0, 20.0], device=dev, dtype=torch.float64)
+    sign = torch.tensor([1.0, -1.0, 1.0, -1.0], device=dev,
+                        dtype=torch.float64)
+    a = torch.cat([a, (sign * 2.0 ** -24 * (1 + 2.0 ** -23) * 2.0 ** k)
+                   .float()])
+    b = torch.cat([b, torch.full((4,), 1 - 2.0 ** -23, device=dev)])
+    c = torch.cat([c, ((1 + 2.0 ** -23) * 2.0 ** k).float()])
+    fma_ok = torch.equal(optim.fma32(a, b, c), optim.fma32_exact(a, b, c))
+    v = a.abs()
+    sqrt_ok = torch.equal(optim._sqrt32(v),
+                          torch.sqrt(v.double()).float())
+    check(fma_ok, "torch.addcmul is not one rounding on the card")
+    check(sqrt_ok, "torch.sqrt is not correctly rounded on the card")
+    return dict(n=int(a.numel()), fma32_single_rounding=fma_ok,
+                sqrt_correctly_rounded=sqrt_ok)
+
+
+def _restart_drill(cfg, run, dev, uninterrupted) -> dict:
+    """ft.Supervisor on the p = 2 Uno step: checkpoints every
+    TRAIN_CKPT_EVERY steps, fail_at(TRAIN_FAIL_AT) interrupts it, a fresh
+    supervisor resumes (bitwise the state saved at the last checkpoint)
+    and its losses hold those of an uninterrupted run over the same
+    steps within TRAIN_RESUME_ATOL.  `uninterrupted`: the losses of the
+    timed p = 2 run (the same seed, batches and step)."""
+    import pathlib
+    import tempfile
+    import torch
+    from repro_torch import ckpt, data, ft, train
+
+    step = train.make_train_step(cfg, run, n_pods=2, device=dev)
+    fresh = lambda: train.make_train_state(cfg, seed=0, device=dev)
+    saved_at = (TRAIN_FAIL_AT // TRAIN_CKPT_EVERY) * TRAIN_CKPT_EVERY - 1
+    snap, losses, save_s = {}, {}, []
+
+    def keep(state, batch, i):
+        state, m = step(state, batch, i)
+        if i == saved_at:
+            snap["state"] = _clone(state)
+        return state, m
+
+    def on(tag):
+        return lambda i, m, w: losses.setdefault(tag, {}).__setitem__(
+            i, float(m["loss"]))
+
+    real_save = ckpt.save
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_save(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return out
+
+    pipe = lambda start=0: data.ShardedPipeline(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=0, start_step=start,
+        device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ftc = ft.FTConfig(ckpt_dir=tmp, ckpt_every=TRAIN_CKPT_EVERY,
+                          async_ckpt=False)
+        ckpt.save = timed_save
+        try:
+            with pipe() as batches:
+                sup = ft.Supervisor(ftc, state_template=fresh())
+                failed = False
+                try:
+                    sup.run(fresh(), keep, iter(batches),
+                            n_steps=TRAIN_DRILL_STEPS,
+                            inject=ft.fail_at(TRAIN_FAIL_AT),
+                            on_metrics=on("interrupted"))
+                except ft.InjectedFailure:
+                    failed = True
+        finally:
+            ckpt.save = real_save
+        check(failed, "restart drill: the injected failure did not fire")
+        latest = ckpt.latest_step(tmp)
+        check(latest == saved_at, f"restart drill: latest checkpoint "
+              f"{latest}, want {saved_at}")
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (pathlib.Path(tmp) / f"step_{latest}").iterdir())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(tmp, latest, fresh())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        bitwise = _states_equal(restored, snap.pop("state"))
+        check(bitwise, "restart drill: the restored state differs from "
+              f"the state saved at step {saved_at}")
+        del restored
+        start = latest + 1
+        sup2 = ft.Supervisor(ftc, state_template=fresh())
+        with pipe(start) as batches:
+            _, last = sup2.run(fresh(), step, iter(batches),
+                               n_steps=TRAIN_DRILL_STEPS,
+                               on_metrics=on("resumed"))
+        check({"kind": "resume", "step": latest} in sup2.events,
+              f"restart drill: no resume from step {latest}")
+    diffs = {i: abs(losses["resumed"][i] - uninterrupted[i])
+             for i in losses["resumed"]}
+    check(last == TRAIN_DRILL_STEPS and sorted(diffs) == list(
+        range(start, TRAIN_DRILL_STEPS)), "restart drill: wrong steps")
+    check(max(diffs.values()) <= TRAIN_RESUME_ATOL,
+          f"restart drill: resumed losses off by {max(diffs.values())}")
+    return dict(ckpt_every=TRAIN_CKPT_EVERY, fail_at=TRAIN_FAIL_AT,
+                saved_at=saved_at, resumed_at=start,
+                restored_bitwise=bitwise, save_s=save_s,
+                restore_s=restore_s, ckpt_bytes=ckpt_bytes,
+                max_resumed_loss_diff=max(diffs.values()),
+                resumed_losses=losses["resumed"],
+                uninterrupted_losses=uninterrupted[start:TRAIN_DRILL_STEPS],
+                events=sup.events + sup2.events)
+
+
+def progress(what: str, rec: dict):
+    """One line of a phase's progress (ms/step, losses, memory) on
+    stdout, so that a run that fails a later check still shows it."""
+    keys = ("ms_per_step", "tokens_per_s", "peak_mem_bytes", "sync_ms",
+            "max_loss_diff", "param_diff_after_step1", "held_loss",
+            "losses", "wall_ms",
+            "device_kernels", "device_busy_ms_per_call",
+            "busy_ms_by_kind")
+    print(json.dumps({"progress": what,
+                      **{k: rec[k] for k in keys if k in rec}}), flush=True)
+
+
+def train_phase(dev, card, cfg, uno_records):
+    """smollm-135m training on the card: the baseline step and the Uno
+    step at each pod count (K3-K5 inside the step), checked against each
+    other and timed; the Uno update on the kernels against the plain
+    backend on the same stacked gradients; the restart drill.  Returns
+    kernel records for the train paths (the unorc_kernels phase's
+    measurements at the same shapes, with the train paths' counts)."""
+    import torch
+    from repro_torch import models, train
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import params as P
+
+    t_phase = time.perf_counter()
+    run = RunConfig(**TRAIN_RUN)
+    n = TRAIN_WARM + TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batches = _train_batches(cfg, dev, n)
+    fma = _fma_on_card(dev)
+    timed = slice(TRAIN_WARM, n)
+
+    def summary(losses, secs):
+        ms = statistics.median(secs[timed]) * 1e3
+        return dict(ms_per_step=ms, tokens_per_s=tokens / (ms * 1e-3),
+                    ms_per_step_all=[t * 1e3 for t in secs],
+                    first_step_s=secs[0], losses=losses)
+
+    def falls(losses, params, rec, what):
+        """Finite losses, and the loss of the first batch lower under the
+        trained params than under the initial ones (step 0's loss): one
+        batch before and after, so that no batch-to-batch spread enters."""
+        check(all(math.isfinite(x) for x in losses), f"{what}: non-finite")
+        with torch.no_grad():
+            rec["held_loss"] = [losses[0], float(
+                models.loss_fn(params, batches[0], cfg))]
+        check(rec["held_loss"][1] < rec["held_loss"][0],
+              f"{what}: the first batch's loss did not fall "
+              f"({rec['held_loss']})")
+
+    base_step = train.make_train_step(cfg, run, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    base_state, base_losses, base_secs, base_snap = drive(
+        f"train:{UNO_ARCH}:base", lambda: _train_run(
+            base_step, train.make_train_state(cfg, seed=0, device=dev),
+            batches), plain=True)
+    # filled as the runs go, so a failed check leaves what came before it
+    out = RESULTS["train"] = dict(
+        arch=UNO_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        tokens_per_step=tokens, run=TRAIN_RUN, warmup_steps=TRAIN_WARM,
+        timed_steps=TRAIN_STEPS, fma_check=fma,
+        baseline=dict(**summary(base_losses, base_secs),
+                      peak_mem_bytes=torch.cuda.max_memory_allocated()),
+        uno={})
+    falls(base_losses, base_state["params"], out["baseline"], "baseline")
+    progress("baseline", out["baseline"])
+    out["baseline"]["profile"] = _step_device_profile(
+        base_step, cfg, dev, batches[0])
+    progress("baseline profile", out["baseline"]["profile"])
+    records = []
+    for p in UNO_PODS:
+        step = train.make_train_step(cfg, run, n_pods=p, device=dev)
+        events = []
+        sync = step.uno_sync
+
+        def timed_sync(stacked, sync=sync, events=events):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            grads = sync(stacked)
+            e1.record()
+            events.append((e0, e1))
+            return grads
+
+        step.uno_sync = timed_sync
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses, secs, snap = drive(train_path(p), lambda: _train_run(
+            step, train.make_train_state(cfg, seed=0, device=dev), batches))
+        peak = torch.cuda.max_memory_allocated()
+        step.uno_sync = sync
+        torch.cuda.synchronize()
+        sync_ms = [a.elapsed_time(b) for a, b in events]
+        loss_diff = [abs(a - b) for a, b in zip(losses, base_losses)]
+        param_diff = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(snap, base_snap))
+        sync_med = statistics.median(sync_ms[timed])
+        rec = out["uno"][f"p{p}"] = dict(
+            **summary(losses, secs), peak_mem_bytes=peak,
+            sync_ms=sync_med, sync_ms_all=sync_ms,
+            sync_share_event=sync_med / statistics.median(secs[timed])
+            / 1e3,
+            max_loss_diff=max(loss_diff), loss_diffs=loss_diff,
+            param_diff_after_step1=param_diff,
+            param_diff_final=max(
+                float((a.float() - b.float()).abs().max()) for a, b in
+                zip(P.flatten(state["params"])[0],
+                    P.flatten(base_state["params"])[0])),
+            launches=PATHS[train_path(p)])
+        falls(losses, state["params"], rec, f"uno p={p}")
+        progress(f"uno p={p}", rec)
+        check(max(loss_diff) <= TRAIN_LOSS_ATOL,
+              f"uno p={p}: loss off the baseline's by {max(loss_diff)}")
+        check(param_diff <= TRAIN_PARAM_ATOL,
+              f"uno p={p}: params after step 1 off by {param_diff}")
+        want = {k: v * n for k, v in sync_launches(run, p).items()}
+        check(PATHS[train_path(p)] == want,
+              f"{train_path(p)} launched {PATHS[train_path(p)]}, "
+              f"want {want}")
+        # the Uno update on the kernels and on the plain backend, the
+        # same stacked gradients
+        _, stacked = step.pod_grads(state["params"], batches[0])
+        plain = train.make_train_step(cfg, run, n_pods=p, device=dev,
+                                      backend="plain")
+        s_k, g_k = step.sync_and_update(state, stacked, n)
+        s_p, g_p = drive(f"train:{UNO_ARCH}:p{p}:plain",
+                         lambda: plain.sync_and_update(state, stacked, n),
+                         plain=True)
+        bitwise = _states_equal(s_k, s_p) and _states_equal(g_k, g_p)
+        check(bitwise, f"uno p={p}: sync_and_update on the kernels differs "
+              "from the plain backend")
+        prof_sync = device_profile(lambda: step.uno_sync(stacked), 3)
+        del s_k, s_p, g_k, g_p, stacked
+        prof_step = _step_device_profile(step, cfg, dev, batches[0])
+        rec.update(
+            sync_device_ms=prof_sync["device_busy_ms_per_call"],
+            step_device_ms=prof_step["device_busy_ms_per_call"],
+            sync_share_device=prof_sync["device_busy_ms_per_call"]
+            / prof_step["device_busy_ms_per_call"]
+            if prof_step["device_busy_ms_per_call"] else None,
+            profile=prof_step, sync_profile=prof_sync,
+            kernels_vs_plain_bitwise=bitwise)
+        for r in uno_records:
+            if r["path"] == uno_path(p):
+                records.append(dict(r, name=f"{r['name']}@train",
+                                    path=train_path(p)))
+        del state, snap
+        torch.cuda.empty_cache()
+    del base_state, base_snap
+    out["restart_drill"] = _restart_drill(cfg, run, dev,
+                                          out["uno"]["p2"]["losses"])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("train", **card, **out)
+    del batches
+    torch.cuda.empty_cache()
+    return records
+
+
+def _kernel_kind(name: str) -> str:
+    n = name.lower()
+    for kind, keys in (("unorc", ("gf_matmul", "quant_int8")),
+                       ("gemm_f32", ("gemm_f32", "sgemm")),
+                       ("gemm_bf16", ("gemm", "nvjet", "s16816", "cutlass")),
+                       ("reduce", ("reduce",)),
+                       ("copy_index_cat", ("cat", "copy", "index",
+                                           "gather", "scatter", "roll")),
+                       ("elementwise", ("elementwise",))):
+        if any(k in n for k in keys):
+            return kind
+    return "other"
+
+
+def _step_device_profile(step, cfg, dev, batch):
+    """One step from a fresh state (after one warm-up step) under
+    torch.profiler: device kernels, busy ms, idle share, and the busy
+    time by kernel kind (f32 / bf16 GEMMs, elementwise, reductions,
+    copies and indexing, the UnoRC kernels)."""
+    import torch
+    from collections import Counter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import train
+    state = train.make_train_state(cfg, seed=0, device=dev)
+    state, _ = step(state, batch, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds, n_kernels = Counter(), 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kinds[_kernel_kind(e.name)] += e.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    busy = sum(kinds.values())
+    return dict(wall_ms=wall * 1e3, device_kernels=n_kernels,
+                device_busy_ms_per_call=busy if n_kernels else None,
+                device_idle_share=1.0 - busy / (wall * 1e3) if n_kernels
+                else None,
+                busy_ms_by_kind=dict(kinds.most_common()))
 
 
 # ------------------------------------------------------------- main
@@ -2165,6 +2581,7 @@ def main() -> int:
     emit("unorc_kernels", records=uno_records, erasure_patterns=n_patterns)
     unorc_sync_phase(dev, card, uno_cfg)
     records += uno_records
+    records += train_phase(dev, card, uno_cfg, uno_records)
     for rec in records:
         rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "

@@ -1,0 +1,156 @@
+"""Core layers of the dense LM: RMSNorm, RoPE, GQA attention with an
+online softmax over KV blocks, the three MLPs and the chunked
+cross-entropy.
+
+The reference's ``repro.models.layers`` in plain PyTorch: activations in
+the config's compute dtype (bf16), norm, softmax and loss numerics in
+float32, in the reference's order of operations.  Where the reference
+wraps a scan body in ``jax.checkpoint`` (the attention block step, the
+loss chunk) the port runs the body under ``torch.utils.checkpoint``
+(non-reentrant): the backward pass recomputes the (q, k) score block and
+the chunk's logits instead of keeping them.  The large products stay
+``torch.matmul`` / ``einsum``.  `decode_attention` belongs to the serving
+path and is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def rms_norm(x, w, eps):
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_cos_sin(positions, head_dim, theta, dtype):
+    """positions: int[...]; returns cos/sin of shape
+    positions.shape + (head_dim / 2,)."""
+    half = head_dim // 2
+    ar = torch.arange(half, dtype=F32, device=positions.device)
+    freqs = 1.0 / (theta ** (ar / half))
+    ang = positions.to(F32)[..., None] * freqs
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, H, D); cos/sin: (..., S, D/2) broadcast over heads."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ---------------------------------------------------------------- attention
+
+def _kv_block_step(m, l, acc, qf, k_j, v_j, q_pos, k_pos, causal, kv_len):
+    """One online-softmax step over a KV block; f32 m, l and acc."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k_j.to(F32))
+    mask = None
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]
+    if kv_len is not None:
+        valid = (k_pos < kv_len)[None, :]
+        mask = valid if mask is None else mask & valid
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", p, v_j.to(F32))
+    return m_new, l_new, acc_new
+
+
+def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                    kv_block: int = 1024, kv_len=None):
+    """Online-softmax attention over KV blocks (bounded memory).
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); GQA via Hq = G * Hkv.
+    kv_len: optional — positions >= kv_len are masked (padded KV cache).
+    Returns (B, Sq, Hq, D) in q.dtype.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    blk = min(kv_block, Skv)
+    if Skv % blk:
+        raise ValueError(f"Skv {Skv} is not a multiple of kv_block {blk}")
+    n_blocks = Skv // blk
+
+    scale = D ** -0.5
+    qf = (q.to(F32) * scale).reshape(B, Sq, Hkv, G, D)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=F32, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=F32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, D), dtype=F32, device=q.device)
+    for j in range(n_blocks):
+        k_pos = j * blk + torch.arange(blk, device=q.device)
+        sl = slice(j * blk, (j + 1) * blk)
+        m, l, acc = checkpoint(_kv_block_step, m, l, acc, qf, k[:, sl],
+                               v[:, sl], q_pos, k_pos, causal, kv_len,
+                               use_reentrant=False)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------- MLP
+
+def mlp(h, p, act: str):
+    """p holds w_up/w_down (+ w_gate for swiglu). h: (B, S, d)."""
+    if act == "swiglu":
+        g = torch.matmul(h, p["w_gate"])
+        u = torch.matmul(h, p["w_up"])
+        z = F.silu(g.to(F32)).to(h.dtype) * u
+    else:
+        u = torch.matmul(h, p["w_up"])
+        if act == "squared_relu":
+            r = torch.relu(u.to(F32))
+            z = (r * r).to(h.dtype)
+        elif act == "gelu":
+            # jax.nn.gelu's default is the tanh approximation
+            z = F.gelu(u.to(F32), approximate="tanh").to(h.dtype)
+        else:
+            raise ValueError(act)
+    return torch.matmul(z, p["w_down"])
+
+
+# ---------------------------------------------------------------- losses
+
+def _xent_chunk(hx, yx, lm_head):
+    logits = torch.matmul(hx, lm_head).to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    pick = torch.gather(logits, -1, torch.clamp(yx, min=0)[..., None])[..., 0]
+    valid = (yx >= 0).to(F32)
+    nll = (lse - pick) * valid
+    return nll.sum(), valid.sum()
+
+
+def chunked_softmax_xent(h, lm_head, labels, *, chunk: int = 1024):
+    """Next-token CE without materializing (B, S, V) logits.
+
+    h: (B, S, d) final hidden states; lm_head: (d, V); labels: int (B, S)
+    (already shifted; -1 entries are masked out).  Returns the mean nll
+    (f32 scalar)."""
+    B, S, d = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S {S} is not a multiple of chunk {chunk}")
+    tot = torch.zeros((), dtype=F32, device=h.device)
+    cnt = torch.zeros((), dtype=F32, device=h.device)
+    for i in range(S // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, c = checkpoint(_xent_chunk, h[:, sl], labels[:, sl], lm_head,
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)

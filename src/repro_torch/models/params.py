@@ -2,9 +2,12 @@
 leaf order.
 
 `param_defs(cfg)` restates the reference's ``repro.models.transformer
-.param_defs`` (and ``api.ParamDef``/``param_count``) as shapes and dtypes
-only: nothing is allocated.  The dense family is covered; the others
-raise until the LLM slice ports them.
+.param_defs`` (and ``api.ParamDef``/``param_count``) as shapes and dtypes;
+`init_params` materializes them (``api.init_params``) from an explicit
+`torch.Generator` on the target device.  The draws are torch's, not
+``jax.random``'s: parity with the reference comes from carrying its
+weights across with `tree_from_arrays`.  The dense family is covered; the
+others raise.
 
 A parameter or gradient tree is a nested dict of tensors.  `flatten`
 walks it in ``jax.tree.flatten``'s order, which sorts dict keys at every
@@ -86,6 +89,29 @@ def param_defs(cfg: ModelConfig) -> dict:
         defs["embed"] = ParamDef((cfg.vocab, cfg.d_model), ("vocab", "fsdp"),
                                  scale=1.0)
     return defs
+
+
+def _materialize(d: ParamDef, generator: torch.Generator) -> torch.Tensor:
+    dev = generator.device
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=d.dtype, device=dev)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=d.dtype, device=dev)
+    scale = d.scale
+    if scale is None:
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    x = torch.randn(d.shape, generator=generator, device=dev,
+                    dtype=torch.float32)
+    return (x * scale).to(d.dtype)
+
+
+def init_params(defs: dict, generator: torch.Generator) -> dict:
+    """The ParamDef tree materialized on `generator`'s device: ones and
+    zeros as declared, else N(0, 1) x scale (1/sqrt(fan_in) by default)
+    in float32, cast to the leaf dtype.  Leaves draw in JAX leaf order."""
+    leaves, treedef = flatten(defs)
+    return unflatten(treedef, [_materialize(d, generator) for d in leaves])
 
 
 def param_count(defs: dict) -> int:
