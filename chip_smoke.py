@@ -167,8 +167,32 @@ Phases, each printing one JSON line:
                resumed losses within 1e-3 of the timed p = 2 run's over
                the same steps; save and restore seconds, checkpoint
                bytes).
+ 14. validate — (run after phase 12) the fluid halves of two
+               `fleetsim.validate` comparisons, the 2-flow dumbbell of
+               `compare_steady_state(1, 1)` and the k=4 cross-pod incast
+               of `compare_fat_tree_steady_state()`, through
+               `fluid_scenario_rates` on the card (backend auto: the flat
+               K1 / K2) and on the CPU, 5,000 + 500 epochs each: rates
+               within 1e-5 x the link rate (the fat tree: or 4 x the
+               card's divergence between its kernel and plain backends),
+               ms per epoch on each device, the kernels launched; K1 /
+               K2 flat held at each layout as in phase 3
+               (`…@validate_<case>`);
+ 15. serve — (run after phase 13) smollm-135m served at full width
+               (seeded bf16 weights, TF32 off) through
+               `launch.serve.serve`: the reference CLI's default mix
+               (16 requests of 64 + 32 tokens, batch 8, 2 waves) and a
+               long-prompt mix (8 of 1,024 + 128, one wave; a 212 MB KV
+               cache): TTFT and inter-token p50, tokens/s, wall seconds,
+               prefill ms, peak memory, device kernels, busy and idle per
+               decode step (a profile of 10 steps); completions bitwise
+               equal across two runs, logits finite; and the serving
+               example's reduced qwen2.5 in float32 on the card against
+               the CPU (prefill and decode logits within 1e-4
+               normalized, the 12 requests' greedy completions token for
+               token).  The serving path launches no hand-written kernel.
 
-Every path that phases 4 to 6, 8 to 12 and 13 drive runs with the launch
+Every path that phases 4 to 6, 8 to 12 and 13 to 15 drive runs with the launch
 counts zeroed just before it and read just after it; each kernel record
 carries the count of the path it belongs to (`path`), and a path's
 kernel that was never launched in it fails the run.  The comparisons of
@@ -273,6 +297,17 @@ TRAIN_RESUME_ATOL = 1e-3
 RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
 DRAWS: dict = {}            # path name -> its threefry2x32 calls
+# phase 14: the fluid halves of two fleetsim.validate comparisons
+VALIDATE_WARM, VALIDATE_MEAS = 5_000, 500
+VALIDATE_ATOL = 1e-5        # x the link rate: the dumbbell bar
+# phase 15: smollm-135m serving at full width, seeded bf16 weights
+SERVE_ARCH = "smollm-135m"
+SERVE_MIXES = {             # the reference CLI's defaults; 8 x 1,024 + 128
+    "defaults": dict(requests=16, prompt=64, gen=32, batch=8),
+    "long": dict(requests=8, prompt=1024, gen=128, batch=8)}
+SERVE_PROFILE_STEPS = 10
+SERVE_CARD_RTOL = 1e-4      # reduced qwen2.5 f32, card against CPU
+
 MAIN_PATH = "fat_tree:steady_state:pt_cuda"
 FLAT_PATH = "fat_tree:agree:cuda"
 DB_MP_PATH = "dumbbell_mp:uno:cuda"
@@ -2513,6 +2548,235 @@ def _step_device_profile(step, cfg, dev, batch):
                 busy_ms_by_kind=dict(kinds.most_common()))
 
 
+# ------------------------------------------------------------- phase 14
+
+def validate_path(case: str, backend: str = "cuda") -> str:
+    return f"validate:{case}:{backend}"
+
+
+def _cpu_threads(n: int):
+    """A context that runs torch on `n` CPU threads (the eager fleet step
+    on small tensors is far slower on many)."""
+    import contextlib
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        prev = torch.get_num_threads()
+        torch.set_num_threads(n)
+        try:
+            yield
+        finally:
+            torch.set_num_threads(prev)
+    return ctx()
+
+
+def validate_phase(dev, card):
+    """The fluid halves of `compare_steady_state(1, 1)` (the 2-flow
+    dumbbell) and `compare_fat_tree_steady_state()` (k=4 cross-pod
+    incast) through `fleetsim.validate.fluid_scenario_rates` on the card
+    (backend auto: the flat kernels) and on the CPU at the same depth:
+    per-flow rates within 1e-5 x the link rate on the dumbbell; on the
+    fat tree within max(1e-5 x the rate, 4 x the card's own divergence
+    between its kernel and plain backends).  K1 / K2 flat are held
+    against their plain versions at each layout (`…@validate_<case>`).
+    Returns those kernel records."""
+    import numpy as np
+    import torch
+    from repro_torch.fleetsim import links as L
+    from repro_torch.fleetsim import validate as V
+    from repro_torch.scenarios import to_fleetsim
+
+    t_phase = time.perf_counter()
+    depth = dict(n_warm=VALIDATE_WARM, n_meas=VALIDATE_MEAS)
+    epochs = VALIDATE_WARM + VALIDATE_MEAS
+    records, runs = [], {}
+    for case, spec in (("dumbbell_2flow", V.steady_state_spec(1, 1)),
+                       ("fat_tree_k4", V.fat_tree_steady_spec())):
+        path = validate_path(case)
+        fs = to_fleetsim(spec, device=dev)
+        backend = L._resolve_backend(fs.net, "auto")
+        check(backend == "cuda", f"validate {case}: auto -> {backend}")
+        recs, _ = kernel_phase(fs.net, dev, path, tag=f"@validate_{case}")
+        records += recs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_rates = drive(path, lambda: V.fluid_scenario_rates(
+            spec, device=dev, **depth))
+        card_s = time.perf_counter() - t0
+        with _cpu_threads(1):
+            t0 = time.perf_counter()
+            cpu_rates = V.fluid_scenario_rates(spec, device="cpu", **depth)
+            cpu_s = time.perf_counter() - t0
+        check(card_rates.shape == (spec.n_flows,)
+              and bool(np.isfinite(card_rates).all()),
+              f"validate {case}: rates not finite of shape ({spec.n_flows},)")
+        err = float(np.max(np.abs(card_rates.astype(np.float64)
+                                  - cpu_rates))) / spec.rate
+        noise = None
+        tol = VALIDATE_ATOL
+        if case.startswith("fat_tree"):
+            plain = drive(validate_path(case, "reference"),
+                          lambda: V.fluid_scenario_rates(
+                              spec, device=dev, backend="reference",
+                              **depth), plain=True)
+            noise = float(np.max(np.abs(card_rates.astype(np.float64)
+                                        - plain))) / spec.rate
+            tol = max(VALIDATE_ATOL, 4.0 * noise)
+        check(err <= tol, f"validate {case}: card vs CPU {err} > {tol}")
+        runs[case] = dict(
+            n_flows=spec.n_flows, n_links=fs.net.n_links, backend=backend,
+            epochs=epochs, card_s=card_s, cpu_s=cpu_s,
+            card_ms_per_epoch=card_s / epochs * 1e3,
+            cpu_ms_per_epoch=cpu_s / epochs * 1e3,
+            rel_err_card_vs_cpu=err, backend_noise=noise, tol=tol,
+            util_fluid=float(card_rates.sum() / spec.rate),
+            launches=PATHS[path])
+        progress(f"validate {case}", dict(wall_ms=card_s * 1e3))
+    emit("validate", **card, n_warm=VALIDATE_WARM, n_meas=VALIDATE_MEAS,
+         runs=runs, seconds=time.perf_counter() - t_phase)
+    return records
+
+
+# ------------------------------------------------------------- phase 15
+
+def serve_path(mix: str) -> str:
+    return f"serve:{SERVE_ARCH}:{mix}"
+
+
+def _serve_mix(cfg, params, dev, mix):
+    """One request mix served twice through `launch.serve.serve` (the
+    second run timed, under the peak-memory counter), the completions of
+    both runs bitwise equal; then one wave's prefill timed and 10 decode
+    steps profiled."""
+    import torch
+    from repro_torch.launch import serve as S
+    max_len = mix["prompt"] + mix["gen"]
+
+    def run():
+        reqs = S.make_requests(cfg, mix["requests"], mix["prompt"],
+                               mix["gen"])
+        stats = S.serve(cfg, reqs, batch=mix["batch"], max_len=max_len,
+                        params=params, device=dev)
+        return stats, [r.out for r in reqs]
+
+    _, outs0 = run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats, outs = drive(serve_path(mix["name"]), run, plain=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(outs == outs0, f"serve {mix['name']}: completions differ "
+          "between two runs")
+    check(stats["tokens"] == mix["requests"] * mix["gen"],
+          f"serve {mix['name']}: {stats['tokens']} tokens")
+    eng = S.Engine(cfg, batch=mix["batch"], max_len=max_len, params=params,
+                   device=dev)
+    x = eng.wave_inputs(S.make_requests(cfg, mix["batch"], mix["prompt"],
+                                    mix["gen"]))
+    with torch.inference_mode():
+        prefill_ms = time_ms(lambda: eng.prefill(params, x), n=10)
+        logits, cache, pos = eng.prefill(params, x)
+        check(bool(torch.isfinite(logits).all()),
+              f"serve {mix['name']}: prefill logits not finite")
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        box = [pos]
+
+        def one_step():
+            eng.decode(params, cache, tok, box[0])
+            box[0] = box[0] + 1 if box[0] + 1 < max_len else pos
+
+        prof = device_profile(one_step, SERVE_PROFILE_STEPS)
+    del cache, logits
+    return dict(
+        **{k: mix[k] for k in ("requests", "prompt", "gen", "batch")},
+        waves=-(-mix["requests"] // mix["batch"]), max_len=max_len,
+        kv_cache_bytes=2 * cfg.n_layers * mix["batch"] * max_len
+        * cfg.n_kv_heads * cfg.head_dim * 2,
+        ttft_p50_ms=stats["ttft_p50_ms"], itl_p50_ms=stats["itl_p50_ms"],
+        tok_per_s=stats["tok_per_s"], wall_s=stats["wall_s"],
+        tokens=stats["tokens"], prefill_ms=prefill_ms,
+        peak_mem_bytes=peak, decode_profile=prof,
+        completions_bitwise_repeat=True, first_completion=outs[0][:16])
+
+
+def _serve_card_vs_cpu(dev):
+    """The serving example's reduced qwen2.5 in float32 (TF32 off), the
+    same seeded params on the card and on the CPU: prefill logits and one
+    decode step's within 1e-4 normalized, and the example's 12 requests
+    completed with the same greedy tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import models
+    from repro_torch.launch import serve as S, serve_batched
+    from repro_torch.models import params as P
+    cfg = dataclasses.replace(serve_batched.example_config(),
+                              param_dtype="float32",
+                              compute_dtype="float32")
+    leaves, treedef = P.flatten(models.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    cpu = P.unflatten(treedef, [l.float() for l in leaves])
+    card_p = P.unflatten(treedef, [l.float().to(dev) for l in leaves])
+    x = torch.from_numpy(np.stack([r.prompt for r in S.make_requests(
+        cfg, 4, 48, 24)]))
+    errs = {}
+    with torch.inference_mode(), _cpu_threads(1):
+        want_l, want_c, pos = models.prefill(cpu, x, cfg, 72)
+        got_l, got_c, _ = models.prefill(card_p, x.to(dev), cfg, 72)
+        tok = want_l.argmax(-1).to(torch.int32)[:, None]
+        want_d, _ = models.decode_step(cpu, want_c, tok, pos, cfg)
+        got_d, _ = models.decode_step(card_p, got_c, tok.to(dev), pos, cfg)
+    for name, got, want in (("prefill", got_l, want_l),
+                            ("decode", got_d, want_d)):
+        errs[name] = float((got.cpu() - want).abs().max()
+                           / want.abs().max())
+        check(errs[name] <= SERVE_CARD_RTOL,
+              f"serve qwen2.5 f32 {name} logits: card vs CPU {errs[name]}")
+    outs = {}
+    for where, prm in (("cpu", cpu), ("card", card_p)):
+        reqs = S.make_requests(cfg, 12, 48, 24)
+        with _cpu_threads(1):
+            S.serve(cfg, reqs, batch=4, max_len=72, params=prm,
+                    device="cpu" if where == "cpu" else dev)
+        outs[where] = [r.out for r in reqs]
+    check(outs["card"] == outs["cpu"], "serve qwen2.5 f32: greedy "
+          "completions on the card differ from the CPU's")
+    return dict(logits_rel_err=errs, tokens=sum(map(len, outs["card"])),
+                completions_equal=True)
+
+
+def serve_phase(dev, card):
+    """smollm-135m served at full width from seeded bf16 weights: the two
+    request mixes of SERVE_MIXES (TTFT and inter-token p50, tokens/s,
+    wall, prefill ms, peak memory, device kernels / busy / idle per
+    decode step), completions bitwise equal across two runs, logits
+    finite; then the reduced qwen2.5 in float32 on the card against the
+    CPU."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs.registry import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    out = RESULTS["serve"] = dict(arch=SERVE_ARCH, mixes={})
+    for name, mix in SERVE_MIXES.items():
+        rec = out["mixes"][name] = _serve_mix(cfg, params, dev,
+                                              dict(mix, name=name))
+        progress(f"serve {name}", dict(
+            ms_per_step=rec["itl_p50_ms"], tokens_per_s=rec["tok_per_s"],
+            peak_mem_bytes=rec["peak_mem_bytes"],
+            wall_ms=rec["wall_s"] * 1e3,
+            device_kernels=rec["decode_profile"]["device_kernels_per_call"],
+            device_busy_ms_per_call=rec["decode_profile"][
+                "device_busy_ms_per_call"]))
+    del params
+    torch.cuda.empty_cache()
+    out["qwen2_5_reduced_f32_card_vs_cpu"] = _serve_card_vs_cpu(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("serve", **card, **out)
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -2576,12 +2840,14 @@ def main() -> int:
     records += sweeps_phase(dev, card)
     records += sharded_grid_phase(fs, dev, card)
     service_phase(dev, card, records)
+    records += validate_phase(dev, card)
     uno_cfg = get_config(UNO_ARCH)
     uno_records, n_patterns = unorc_kernel_phase(dev, uno_cfg)
     emit("unorc_kernels", records=uno_records, erasure_patterns=n_patterns)
     unorc_sync_phase(dev, card, uno_cfg)
     records += uno_records
     records += train_phase(dev, card, uno_cfg, uno_records)
+    serve_phase(dev, card)
     for rec in records:
         rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "

@@ -1,6 +1,9 @@
 """Uniform model API with family dispatch (the reference's
 ``repro.models``): parameter shapes and initialization (`params`), the
-dense decoder-only LM (`transformer`, `layers`).
+dense decoder-only LM (`transformer`, `layers`) for training and
+serving (`prefill`, `decode_step`, the KV cache's `cache_defs`), and
+meta-device stand-ins for the params, the cache and each shape cell's
+inputs.
 
 Only the dense family is ported.  The MoE, SSM and hybrid families raise
 NotImplementedError until ROADMAP item 9b (the remaining LLM families)
@@ -10,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import params, transformer
 
 _NOT_PORTED = ("moe", "ssm", "hybrid")
@@ -36,5 +39,56 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return params.init_params(param_defs(cfg), generator)
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    return params.abstract_params(param_defs(cfg))
+
+
 def loss_fn(params_tree, batch, cfg: ModelConfig):
     return _mod(cfg).loss_fn(params_tree, batch, cfg)
+
+
+def prefill(params_tree, inputs, cfg: ModelConfig, max_len: int):
+    return _mod(cfg).prefill(params_tree, inputs, cfg, max_len)
+
+
+def decode_step(params_tree, cache, inputs, pos: int, cfg: ModelConfig):
+    return _mod(cfg).decode_step(params_tree, cache, inputs, pos, cfg)
+
+
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    return _mod(cfg).cache_defs(cfg, batch, max_len)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    return params.abstract_params(cache_defs(cfg, batch, max_len))
+
+
+# ---------------------------------------------------------------- input specs
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta-device stand-ins for one global training batch."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.input_mode == "embeddings":   # audio / vlm frontend stubs
+        inputs = _meta((B, S, cfg.d_model), torch.bfloat16)
+    else:
+        inputs = _meta((B, S), torch.int32)
+    return {"inputs": inputs, "targets": _meta((B, S), torch.int32)}
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeSpec) -> torch.Tensor:
+    """One-token decode inputs against a KV cache of shape.seq_len."""
+    B = shape.global_batch
+    if cfg.input_mode == "embeddings":
+        return _meta((B, 1, cfg.d_model), torch.bfloat16)
+    return _meta((B, 1), torch.int32)
+
+
+def prefill_input_specs(cfg: ModelConfig, shape: ShapeSpec) -> torch.Tensor:
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.input_mode == "embeddings":
+        return _meta((B, S, cfg.d_model), torch.bfloat16)
+    return _meta((B, S), torch.int32)

@@ -8,9 +8,10 @@ float32, in the reference's order of operations.  Where the reference
 wraps a scan body in ``jax.checkpoint`` (the attention block step, the
 loss chunk) the port runs the body under ``torch.utils.checkpoint``
 (non-reentrant): the backward pass recomputes the (q, k) score block and
-the chunk's logits instead of keeping them.  The large products stay
-``torch.matmul`` / ``einsum``.  `decode_attention` belongs to the serving
-path and is not ported yet.
+the chunk's logits instead of keeping them; with gradients off (serving,
+under ``torch.inference_mode()``) the bodies run directly.  The large
+products stay ``torch.matmul`` / ``einsum``.  `decode_attention` is the
+serving path's one-token attention against the padded KV cache.
 """
 from __future__ import annotations
 
@@ -97,11 +98,31 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     for j in range(n_blocks):
         k_pos = j * blk + torch.arange(blk, device=q.device)
         sl = slice(j * blk, (j + 1) * blk)
-        m, l, acc = checkpoint(_kv_block_step, m, l, acc, qf, k[:, sl],
-                               v[:, sl], q_pos, k_pos, causal, kv_len,
-                               use_reentrant=False)
+        args = (m, l, acc, qf, k[:, sl], v[:, sl], q_pos, k_pos, causal,
+                kv_len)
+        m, l, acc = (checkpoint(_kv_block_step, *args, use_reentrant=False)
+                     if torch.is_grad_enabled() else _kv_block_step(*args))
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """Single-token attention against a padded KV cache.
+
+    q: (B, 1, Hq, D); caches: (B, Smax, Hkv, D); kv_len: the valid length
+    (positions >= kv_len are masked).  f32 scores over the whole cache,
+    softmax, f32 product with V; GQA through (B, Hkv, G, D).
+    """
+    B, _, Hq, D = q.shape
+    _, Smax, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    qf = (q.to(F32) * D ** -0.5).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.to(F32))
+    mask = torch.arange(Smax, device=q.device)[None, None, None, :] < kv_len
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(F32))
+    return out.reshape(B, 1, Hq, D).to(q.dtype)
 
 
 # ---------------------------------------------------------------- MLP

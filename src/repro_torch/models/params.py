@@ -2,8 +2,10 @@
 leaf order.
 
 `param_defs(cfg)` restates the reference's ``repro.models.transformer
-.param_defs`` (and ``api.ParamDef``/``param_count``) as shapes and dtypes;
-`init_params` materializes them (``api.init_params``) from an explicit
+.param_defs`` (and ``api.ParamDef``/``param_count``/``param_bytes``) as
+shapes and dtypes; `abstract_params` gives them as meta-device tensors
+(``api.abstract_params``); `init_params` materializes them
+(``api.init_params``) from an explicit
 `torch.Generator` on the target device.  The draws are torch's, not
 ``jax.random``'s: parity with the reference comes from carrying its
 weights across with `tree_from_arrays`.  The dense family is covered; the
@@ -116,6 +118,19 @@ def init_params(defs: dict, generator: torch.Generator) -> dict:
 
 def param_count(defs: dict) -> int:
     return sum(math.prod(d.shape) for d in flatten(defs)[0])
+
+
+def abstract_params(defs: dict) -> dict:
+    """The ParamDef tree as meta-device tensors: shapes and dtypes, no
+    storage (the reference's ShapeDtypeStructs)."""
+    leaves, treedef = flatten(defs)
+    return unflatten(treedef, [torch.empty(d.shape, dtype=d.dtype,
+                                           device="meta") for d in leaves])
+
+
+def param_bytes(defs: dict) -> int:
+    return sum(math.prod(d.shape) * d.dtype.itemsize
+               for d in flatten(defs)[0])
 
 
 # ------------------------------------------------------------ pytrees

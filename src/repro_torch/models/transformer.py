@@ -1,5 +1,5 @@
 """Decoder-only LM, dense family: the reference's
-``repro.models.transformer`` (training path) in PyTorch.
+``repro.models.transformer`` (training and serving) in PyTorch.
 
 Parameters are a nested dict of tensors under the reference tree's names,
 each layer's weights stacked along a leading layer axis
@@ -8,8 +8,17 @@ carries across to and from the reference leaf for leaf.  `forward` unbinds
 every stacked leaf once and runs the layers in a Python loop in place of
 the reference's scan: the backward pass then stacks each leaf's layer
 gradients in one copy.  `Transformer` holds the same tree as an
-``nn.Module``.  The serving functions (`prefill`, `decode_step`,
-`cache_defs`) and the MoE FFN are not ported yet.
+``nn.Module``.  The MoE FFN is not ported yet (ROADMAP item 9b).
+
+Serving (`cache_defs`, `prefill`, `decode_step`) keeps the reference's
+semantics: `prefill` runs the prompt as one causal pass (left padding is
+attended to, as in the reference), pads the per-layer K/V to `max_len`
+and returns ``pos = S``; `decode_step` writes the new token's K/V at
+`pos` and attends to ``pos + 1`` entries.  Where the reference returns a
+new cache, `decode_step` writes into the given one in place (a slice
+store) and returns it; `pos` is a host integer.  Run serving with
+gradients off (``torch.inference_mode()``): the checkpoints of the
+training path are then skipped.
 """
 from __future__ import annotations
 
@@ -23,10 +32,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models.layers import (apply_rope, chunked_softmax_xent,
-                                       flash_attention, mlp, rms_norm,
-                                       rope_cos_sin)
+                                       decode_attention, flash_attention,
+                                       mlp, rms_norm, rope_cos_sin)
 
 REMAT_POLICIES = ("full", "dots", "none")
+F32 = torch.float32
 
 # ---------------------------------------------------------------- blocks
 
@@ -47,24 +57,46 @@ def _qkv(h, p, cfg, positions):
 
 def attention_block(h, p, cfg, *, positions, kv_block=1024):
     """Causal self-attention over the full input (train / prefill).
-    Returns (residual_output, (k, v))."""
+    Returns (attention output, (k, v)); the residual add is the FFN
+    block's (`_residual_ffn`)."""
     B, S, _ = h.shape
     q, k, v = _qkv(h, p, cfg, positions)
     o = flash_attention(q, k, v, causal=True, kv_block=min(kv_block, S))
-    out = torch.matmul(o.reshape(B, S, cfg.q_dim), p["wo"])
-    return h + out, (k, v)
+    return torch.matmul(o.reshape(B, S, cfg.q_dim), p["wo"]), (k, v)
 
 
-def _ffn(h, lp, cfg):
+def attention_decode_block(h, p, cfg, k_cache, v_cache, pos: int):
+    """One-token attention against the padded cache; writes the token's
+    K/V at `pos` in place.  Returns the attention output (the residual
+    add is `_residual_ffn`'s)."""
+    B = h.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
+    q, k, v = _qkv(h, p, cfg, positions)
+    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    o = decode_attention(q, k_cache, v_cache, pos + 1)
+    return torch.matmul(o.reshape(B, 1, cfg.q_dim), p["wo"])
+
+
+def _residual_ffn(h, out, lp, cfg):
+    """The attention's residual sum h + out, then the FFN block on it.
+    The jitted reference fuses that sum into the FFN norm's float32 cast:
+    the norm reads the float32 sum, the residual stream its value
+    rounded to the compute dtype.  The port does the same (in float32
+    the two are one value)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"the {cfg.family!r} FFN is not ported")
+    s = h.to(F32) + out.to(F32)
+    h = s.to(h.dtype)
     p = lp["mlp"]
-    return h + mlp(rms_norm(h, p["norm"], cfg.norm_eps), p, cfg.act)
+    hn = rms_norm(s, p["norm"], cfg.norm_eps).to(h.dtype)
+    return h + mlp(hn, p, cfg.act)
 
 
-def _layer(h, lp, cfg, positions):
-    h, _ = attention_block(h, lp["attn"], cfg, positions=positions)
-    return _ffn(h, lp, cfg)
+def _layer(h, lp, cfg, positions, want_kv=False):
+    out, kv = attention_block(h, lp["attn"], cfg, positions=positions)
+    h = _residual_ffn(h, out, lp, cfg)
+    return (h, kv) if want_kv else h
 
 
 # jax.checkpoint_policies.dots_with_no_batch_dims_saveable: keep the
@@ -91,6 +123,8 @@ def _remat(fn, cfg):
            if cfg.remat_policy == "dots" else None)
 
     def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
         kw = {"context_fn": ctx} if ctx is not None else {}
         return checkpoint(fn, *args, use_reentrant=False, **kw)
 
@@ -114,24 +148,82 @@ def _layer_params(layers) -> list[dict]:
             for i in range(len(per_leaf[0]))]
 
 
-def forward(params, inputs, cfg):
+def forward(params, inputs, cfg, *, collect_kv=False):
     """inputs: tokens (B, S) int or embeddings (B, S, d).  Returns the
-    final hidden states (B, S, d)."""
+    final hidden states (B, S, d), and with `collect_kv` also (ks, vs),
+    each layer's K and V stacked to (n_layers, B, S, Hkv, D)."""
     if cfg.family != "dense":
         raise NotImplementedError(f"the {cfg.family!r} family is not ported")
     h = embed_inputs(params, inputs, cfg)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
-    body = _remat(functools.partial(_layer, cfg=cfg, positions=positions),
-                  cfg)
+    body = _remat(functools.partial(_layer, cfg=cfg, positions=positions,
+                                    want_kv=collect_kv), cfg)
+    kvs = []
     for lp in _layer_params(params["layers"]):
-        h = body(h, lp)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if collect_kv:
+            h, kv = body(h, lp)
+            kvs.append(kv)
+        else:
+            h = body(h, lp)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if not collect_kv:
+        return h
+    return h, (torch.stack([k for k, _ in kvs]),
+               torch.stack([v for _, v in kvs]))
 
 
 def loss_fn(params, batch, cfg):
     h = forward(params, batch["inputs"], cfg)
     return chunked_softmax_xent(h, params["lm_head"], batch["targets"])
+
+
+# ---------------------------------------------------------------- serving
+
+def cache_defs(cfg, batch: int, max_len: int) -> dict:
+    """The KV cache's ParamDefs: k and v, each (n_layers, batch, max_len,
+    n_kv_heads, head_dim), zeros."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    axes = (None, "kv_batch", "seq_kv", "tensor", None)
+    return {"k": P.ParamDef(shape, axes, init="zeros"),
+            "v": P.ParamDef(shape, axes, init="zeros")}
+
+
+def _logits(h, params):
+    """The last position's logits, float32 (B, V).  The reference casts
+    the product to float32 at once, and under jit XLA then computes it
+    in float32 without rounding it to the compute dtype first: so does
+    the port, on the compute-dtype operands."""
+    return torch.matmul(h[:, -1].to(F32), params["lm_head"].to(F32))
+
+
+def prefill(params, inputs, cfg, max_len: int):
+    """Run the prompt; return (last-token logits f32 (B, V), cache, pos):
+    the cache {"k", "v"} holds every layer's K/V padded to `max_len`
+    along the sequence, and pos = S is where decoding writes next."""
+    h, (ks, vs) = forward(params, inputs, cfg, collect_kv=True)
+    B, S = h.shape[:2]
+    pad = max_len - S
+    if pad < 0:
+        raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
+    if pad:
+        ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
+        vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
+    return _logits(h, params), {"k": ks, "v": vs}, S
+
+
+def decode_step(params, cache, inputs, pos: int, cfg):
+    """One decode step.  inputs: (B, 1) tokens or (B, 1, d) embeddings.
+    The new token's K/V go to index `pos` of every layer's cache (in
+    place); attention sees pos + 1 entries.  Returns (logits f32 (B, V),
+    cache)."""
+    h = embed_inputs(params, inputs, cfg)
+    for i, lp in enumerate(_layer_params(params["layers"])):
+        out = attention_decode_block(h, lp["attn"], cfg, cache["k"][i],
+                                     cache["v"][i], pos)
+        h = _residual_ffn(h, out, lp, cfg)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _logits(h, params), cache
 
 
 # ---------------------------------------------------------------- module
@@ -158,8 +250,9 @@ class Transformer(_Tree):
     """The dense LM as an ``nn.Module``: each leaf of the parameter tree an
     ``nn.Parameter`` under the reference tree's names (``layers.attn.wq``,
     ``lm_head`` ...), stacked by layer.  `tree()` returns the nested dict
-    of those parameters; `forward` and `loss` are the functional
-    `forward` / `loss_fn` on it."""
+    of those parameters; `forward`, `loss`, `prefill` and `decode` are
+    the functional `forward` / `loss_fn` / `prefill` / `decode_step` on
+    it."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__(params)
@@ -170,3 +263,9 @@ class Transformer(_Tree):
 
     def loss(self, batch):
         return loss_fn(self.tree(), batch, self.cfg)
+
+    def prefill(self, inputs, max_len: int):
+        return prefill(self.tree(), inputs, self.cfg, max_len)
+
+    def decode(self, cache, inputs, pos: int):
+        return decode_step(self.tree(), cache, inputs, pos, self.cfg)

@@ -198,8 +198,10 @@ def fat_tree_spec(k: int = 4, n_wan: int = 4, *,
             ps = oracle.path_link_names(src, dst)
             if len(ps) > n_paths:
                 # sample rather than take the source-agg-major prefix
-                rng = random.Random((src * 131071 + dst) ^ (seed << 12)
-                                    ^ 0x5A17)
+                # int(): the pools hold numpy integers, which
+                # random.Random refuses as a seed on Python 3.12
+                rng = random.Random(int((src * 131071 + dst)
+                                        ^ (seed << 12) ^ 0x5A17))
                 ps = tuple(rng.sample(ps, n_paths))
             path_cache[key] = ps
         return ps

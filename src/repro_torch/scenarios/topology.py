@@ -183,7 +183,7 @@ class MultiDCFatTree:
         # cross-DC: up-core (half^2) x WAN link per hop (n_wan each) x
         # down-core (half^2) — sample max_paths combo INDICES directly
         hops = self.wan_route(sdc, ddc)
-        rng = random.Random((src * 131071 + dst) ^ 0xABCDEF)
+        rng = random.Random(int((src * 131071 + dst) ^ 0xABCDEF))  # numpy ints
         total = half * half * half * half * self.n_wan ** len(hops)
         picks = rng.sample(range(total), min(self.max_paths, total))
         for idx in picks:

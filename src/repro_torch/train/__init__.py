@@ -13,8 +13,9 @@ the Uno step, which does what the reference's Uno path does on its
     tensor it launches K3, K4 and K5 or raises), then the optimizer.
 
 The loss is ``lvals.mean()`` over the pods.  ``backend="plain"`` runs the
-sync's plain versions (a reference run on the card).  Serving steps
-(`make_prefill_step`, `make_decode_step`) are not ported yet.
+sync's plain versions (a reference run on the card).  The serving steps
+`make_prefill_step` / `make_decode_step` wrap ``models.prefill`` /
+``models.decode_step`` (run them with gradients off).
 """
 from __future__ import annotations
 
@@ -113,3 +114,17 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, n_pods: int = 1,
     """The baseline step (n_pods = 1) or the Uno step over n_pods pods on
     the one card.  `device`: None means cuda (raises with no card)."""
     return TrainStep(cfg, run, n_pods, device, backend)
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int):
+    """step(params, inputs) -> (last-token logits, cache, pos)."""
+    def step(params, inputs):
+        return models.prefill(params, inputs, cfg, max_len)
+    return step
+
+
+def make_decode_step(cfg: ModelConfig):
+    """step(params, cache, inputs, pos) -> (logits, cache)."""
+    def step(params, cache, inputs, pos):
+        return models.decode_step(params, cache, inputs, pos, cfg)
+    return step

@@ -204,11 +204,15 @@ def test_grid_k1_k2_flat_match_plain_versions_on_card(fault_grid_net):
 
 @pytest.fixture(scope="module")
 def fat_tree_grid_shard():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return lifted_grid_shard()
+
+
+def lifted_grid_shard():
     """Shard 0 of the sharded drain what-if grid: two cells of the k=8,
     100k-flow fat tree on 2 shards under cell 0's plan lifted to the grid
     (`sweeps.shard_grid`), its PathTable and its boundary count."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
     from repro_torch.fleetsim import sweeps
     from repro_torch.scenarios import fat_tree_spec, to_fleetsim
     fs = to_fleetsim(fat_tree_spec(k=8, n_wan=8, n_flows=100_000,

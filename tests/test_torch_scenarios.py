@@ -9,6 +9,8 @@ independence from JAX and the reference package."""
 import ast
 import functools
 import pathlib
+import random
+import sys
 
 import numpy as np
 import pytest
@@ -142,8 +144,12 @@ def test_spec_matches_reference(name):
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_to_fleetsim_arrays_equal_reference(name):
-    ref = _ref_fs(name)
-    port = TS.to_fleetsim(SPECS[name](TS), device="cpu")
+    _assert_fleet_same(_ref_fs(name),
+                       TS.to_fleetsim(SPECS[name](TS), device="cpu"))
+
+
+def _assert_fleet_same(ref, port):
+    """Two compiled scenarios equal array for array."""
     net_r, net_p = ref.net, port.net
     for f in TL.FluidNet._fields:
         if f == "layout":
@@ -172,6 +178,42 @@ def test_to_fleetsim_arrays_equal_reference(name):
         else:
             _assert_same(getattr(ref, f), getattr(port, f), f)
     assert ref.seed == port.seed
+
+
+class _IntSeededRandom(random.Random):
+    """random.Random with its seed cast to int, as the port casts it."""
+
+    def __init__(self, x=None):
+        super().__init__(None if x is None else int(x))
+
+
+INCAST_SAMPLED = {
+    "fat_tree": lambda M: M.fat_tree_spec(k=4, n_cross_pod=6, n_paths=2,
+                                          workload="incast"),
+    "multi_dc": lambda M: M.multi_dc_spec(k=4, n_dc=3, n_inter=4,
+                                          n_cross_pod=0, workload="incast"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(INCAST_SAMPLED))
+def test_incast_with_sampled_path_sets_matches_reference(name, monkeypatch):
+    """`workload="incast"` where a pair's path set is sampled down to
+    `n_paths`: the pools hold numpy integers, which `random.Random`
+    refuses as a seed on Python 3.12.  The port casts the seed to int;
+    the reference raises, so it runs with `random.Random` wrapped to
+    cast its seed (the fat tree binds the module, the multi-DC builder
+    imports it in the function: both read `random.Random`).  Links, path
+    sets, flows and the compiled arrays come out equal."""
+    port = INCAST_SAMPLED[name](TS)
+    if sys.version_info >= (3, 11):
+        with pytest.raises(TypeError):
+            INCAST_SAMPLED[name](RS)
+    monkeypatch.setattr(random, "Random", _IntSeededRandom)
+    ref = INCAST_SAMPLED[name](RS)
+    monkeypatch.undo()
+    assert tuple(ref) == tuple(port)
+    _assert_fleet_same(RS.to_fleetsim(ref),
+                       TS.to_fleetsim(port, device="cpu"))
 
 
 @pytest.mark.parametrize("name", ["dumbbell_mp", "fat_tree_perm",

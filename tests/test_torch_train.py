@@ -358,6 +358,98 @@ def test_uno_step_tracks_baseline(ref_uno):
             assert 0 < delta <= 5e-4, delta
 
 
+_REF_DRIFT = r"""
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+from repro import data, models, optim, train
+from repro.configs.base import RunConfig, reduced
+from repro.configs.registry import get_config
+from repro.core.uno_collectives import make_uno_grad_sync
+from repro.sharding import set_mesh
+P, STEPS, B, S = 4, int(sys.argv[2]), 8, int(sys.argv[3])
+cfg = reduced(get_config("smollm-135m"))
+run = RunConfig(learning_rate=1e-3, warmup_steps=10)
+state0 = train.make_train_state(cfg, jax.random.PRNGKey(0))
+loss = lambda p, b: models.loss_fn(p, b, cfg)
+batches = [data.synth_batch(cfg, i, B, S) for i in range(STEPS)]
+base = jax.jit(train.make_train_step(cfg, run))
+state, base_losses = state0, []
+for i, b in enumerate(batches):
+    state, m = base(state, b, jnp.int32(i))
+    base_losses.append(float(m["loss"]))
+def pod0(a):
+    return np.asarray(sorted(a.addressable_shards,
+                             key=lambda s: s.device.id)[0].data)
+mesh = jax.make_mesh((P,), ("pod",), devices=jax.devices()[:P])
+sync = jax.jit(make_uno_grad_sync(mesh, cfg, run))
+upd = jax.jit(lambda prm, g, s, lr: optim.apply_updates(prm, g, s, cfg, lr))
+lr_fn = jax.jit(lambda s: optim.lr_schedule(s, run.learning_rate,
+                                            run.warmup_steps))
+grads_fn = jax.jit(jax.vmap(jax.value_and_grad(loss), in_axes=(None, 0)))
+state, uno_losses = state0, []
+for i, b in enumerate(batches):
+    bb = jax.tree.map(lambda x: x.reshape((P, B // P) + x.shape[1:]), b)
+    lvals, stacked = grads_fn(state["params"], bb)
+    with set_mesh(mesh):
+        grads = jax.tree.map(pod0, sync(stacked))
+    prm, opt = upd(state["params"], grads, state["opt"],
+                   lr_fn(jnp.float32(i)))
+    state = {"params": prm, "opt": opt}
+    uno_losses.append(float(lvals.mean()))
+res = {"base": np.array(base_losses), "uno": np.array(uno_losses)}
+for i, a in enumerate(jax.tree.leaves(state0["params"])):
+    res[f"init_{i}"] = np.asarray(a).view(np.uint16)
+np.savez(sys.argv[1], **res)
+print("ok")
+"""
+DRIFT_STEPS, DRIFT_SEQ = 23, 64
+
+
+@pytest.fixture(scope="module")
+def ref_drift(tmp_path_factory):
+    """The reference's baseline step (jitted `make_train_step`) and its
+    composed Uno step (as `ref_uno` composes it) at p = 4 on reduced
+    smollm-135m, RunConfig(learning_rate=1e-3, warmup_steps=10), 23
+    steps of synth_batch(step, 8, 64) from the reference's seeded state;
+    one subprocess."""
+    path = tmp_path_factory.mktemp("uno_drift") / "ref.npz"
+    out = subprocess.run([sys.executable, "-c", _REF_DRIFT, str(path),
+                          str(DRIFT_STEPS), str(DRIFT_SEQ)],
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return dict(np.load(path))
+
+
+def test_uno_drift_at_lr_1e3_p4_matches_reference(ref_drift):
+    """The p = 4 Uno step's loss drift from the baseline's at lr 1e-3
+    (warmup 10, 23 steps, bf16) on the port and on the reference, from
+    the same seeded params over the same batches.  The drift is the
+    largest |Uno loss - baseline loss| over the steps.  The port may
+    drift more than the reference by no more than the two baselines'
+    largest difference (the spread of bf16 arithmetic between the
+    packages); the reference's own drift is what the int8 + RS sync does
+    to AdamW at this rate."""
+    _, tcfg = _cfgs()
+    run = TB.RunConfig(learning_rate=1e-3, warmup_steps=10)
+    base = TT.make_train_step(tcfg, run, device="cpu")
+    uno = TT.make_train_step(tcfg, run, n_pods=4, device="cpu")
+    sb = su = _init_state(ref_drift, tcfg)
+    port_base, port_uno = [], []
+    for i in range(DRIFT_STEPS):
+        batch = synth_batch(tcfg, i, 8, DRIFT_SEQ)
+        sb, mb = base(sb, batch, i)
+        su, mu = uno(su, batch, i)
+        port_base.append(float(mb["loss"]))
+        port_uno.append(float(mu["loss"]))
+    port_drift = float(np.max(np.abs(np.subtract(port_uno, port_base))))
+    ref_drift_v = float(np.max(np.abs(ref_drift["uno"] - ref_drift["base"])))
+    spread = float(np.max(np.abs(np.subtract(port_base, ref_drift["base"]))))
+    assert np.all(np.isfinite(port_uno + port_base))
+    assert port_drift - ref_drift_v <= spread, \
+        (port_drift, ref_drift_v, spread)
+
+
 # ------------------------------------------------------------------ the CLIs
 
 def test_train_cli_baseline_and_uno_on_cpu():
