@@ -191,8 +191,30 @@ Phases, each printing one JSON line:
                the CPU (prefill and decode logits within 1e-4
                normalized, the 12 requests' greedy completions token for
                token).  The serving path launches no hand-written kernel.
+ 16. families — (run after phase 15) the MoE, SSM and hybrid families:
+               mamba2-130m at full width and depth (24 layers, d_model
+               768, 16 SSD heads of 96, state 128, vocab 50,280; seeded
+               weights) trained as in phase 13 (8 x 1,024 tokens, AdamW,
+               3 warm-up and 10 timed steps) on the baseline step
+               (`train:mamba2-130m:base`) and the Uno step at p = 2
+               (`train:mamba2-130m:p2:cuda`: K3 encode and decode, K4 and
+               K5 in every step on its gradient of bf16 and float32
+               leaves, each held first at one chunk of it), with phase
+               13's checks; served on phase 15's two mixes
+               (`serve:mamba2-130m:*`; its O(1) state cache beside
+               smollm's KV cache); qwen3-moe-235b-a22b at full width (d
+               4,096, 64 / 4 heads of 128, 128 experts top-8, expert
+               d_ff 1,536, vocab 151,936) with 2 of its 94 layers, the
+               one cut (`reduced`), served on the default mix (the
+               decode step's byte bound beside it: every expert's
+               weights are read) and trained on the baseline step with
+               its Muon (bf16 momentum, the state donated), 3 + 5 steps
+               of 8 x 1,024 tokens, peak memory; and the reduced mamba2,
+               qwen3-moe and jamba in float32 on the card against the
+               CPU (prefill and decode logits within 1e-4 normalized,
+               greedy completions token for token).
 
-Every path that phases 4 to 6, 8 to 12 and 13 to 15 drive runs with the launch
+Every path that phases 4 to 6, 8 to 12 and 13 to 16 drive runs with the launch
 counts zeroed just before it and read just after it; each kernel record
 carries the count of the path it belongs to (`path`), and a path's
 kernel that was never launched in it fails the run.  The comparisons of
@@ -307,6 +329,17 @@ SERVE_MIXES = {             # the reference CLI's defaults; 8 x 1,024 + 128
     "long": dict(requests=8, prompt=1024, gen=128, batch=8)}
 SERVE_PROFILE_STEPS = 10
 SERVE_CARD_RTOL = 1e-4      # reduced qwen2.5 f32, card against CPU
+# phase 16: the MoE, SSM and hybrid families.  mamba2-130m whole (24
+# layers, d_model 768, 16 SSD heads of 96, state 128), trained as smollm
+# is (fewer timed steps) and served on SERVE_MIXES; qwen3-moe at full
+# width with 2 of its 94 layers (one layer's experts alone are 4.8 GB of
+# bf16; training 94 needs expert or pipeline sharding over several cards)
+FAM_SSM = "mamba2-130m"
+FAM_MOE = "qwen3-moe-235b-a22b"
+FAM_MOE_LAYERS = 2
+FAM_WARM, FAM_STEPS = 3, 10
+FAM_MOE_STEPS = 5
+FAM_REDUCED = ("mamba2-130m", "qwen3-moe-235b-a22b", "jamba-1.5-large-398b")
 
 MAIN_PATH = "fat_tree:steady_state:pt_cuda"
 FLAT_PATH = "fat_tree:agree:cuda"
@@ -1926,12 +1959,16 @@ def uno_chunk_len(n_params: int, run) -> int:
     return -(-n_params // unit) * unit // run.uno_chunks
 
 
-def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
+def unorc_kernel_phase(dev, cfg, n_pods: int = 2, path_p2: str = "",
+                       tag: str = "", extended: bool = True):
     """Every UnoRC kernel use against its plain version on the card at the
     shapes of one chunk of the p = 2 sync, K3 also at one part of a chunk
     of the p = 4 ring, and the 55 erasure patterns;
     returns the per-kernel records (`path`/`counter` as in
-    `kernel_phase`) and the pattern count."""
+    `kernel_phase`) and the pattern count.  The p = 2 records count the
+    launches of `path_p2` (default `uno_path(2)`) and carry `tag` in
+    their names; without `extended` only the four uses of a p = 2 sync
+    (K4, K3 encode and decode, K5 fused with the add) are held."""
     import itertools
     import torch
     from repro_torch.configs.base import RunConfig
@@ -1985,29 +2022,44 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
             shape=[int(v) for v in o1[0].shape], **extra))
         return o1 if len(o1) > 1 else o1[0]
 
+    p2 = path_p2 or uno_path(2)
     nb = c // 256
-    q, s = record("quant_int8", uno_path(2),
+    q, s = record("quant_int8", p2,
                   "src/repro/kernels/quant_pallas.py:36",
                   lambda: K.quant_int8(x), lambda: ref.quant_int8_ref(x),
-                  n_pods * (4 * c + c + 4 * nb), n_pods * c)
+                  n_pods * (4 * c + c + 4 * nb), n_pods * c,
+                  name=f"quant_int8{tag}")
     check(bool((s[:, 5] == 1.0).all()) and float(s[1, 0]) == 1.0,
           "quant_int8: zero blocks must have scale 1")
     rows = q.view(torch.uint8).reshape(n_pods, nx, -1)
     width = rows.shape[-1]
     enc = gf.rs_generator_rows(nx, ny)
-    parity = record("gf_matmul/encode", uno_path(2),
+    parity = record("gf_matmul/encode", p2,
                     "src/repro/kernels/rs_pallas.py:56",
                     lambda: K.gf_matmul(rows, enc, use="encode"),
                     lambda: ref.gf_matmul_ref(enc, rows),
-                    n_pods * (nx + ny) * width)
+                    n_pods * (nx + ny) * width, name=f"gf_matmul/encode{tag}")
     surv = torch.cat([rows[:, ny:], parity], dim=1)
     dec = gf.rs_decode_matrix(nx, ny, tuple(range(ny)), tuple(range(ny)))
-    rebuilt = record("gf_matmul/decode", uno_path(2),
+    rebuilt = record("gf_matmul/decode", p2,
                      "src/repro/kernels/rs_pallas.py:56",
                      lambda: K.gf_matmul(surv, dec, use="decode"),
                      lambda: ref.gf_matmul_ref(dec, surv),
-                     n_pods * (nx + ny) * width)
+                     n_pods * (nx + ny) * width,
+                     name=f"gf_matmul/decode{tag}")
     check(torch.equal(rebuilt, rows[:, :ny]), "decode: rows {0, 1} lost")
+    xb = x.view(n_pods, nb, 256)
+    qb, sb = q.view(n_pods, nb, 256), s[..., None]
+    record("dequant_int8/acc", p2,
+           "src/repro/kernels/quant_pallas.py:59",
+           lambda: K.dequant_int8(q, s, x),
+           lambda: ref.dequant_int8_ref(q, s, acc=x),
+           n_pods * (c + 4 * nb + 8 * c), 2 * n_pods * c,
+           library=lambda: torch.addcmul(xb, qb, sb),
+           name=f"dequant_int8/acc{tag}")
+    if not extended:
+        torch.cuda.synchronize()
+        return records, 0
     # K3 at the p = 4 ring's shape: each of its 48 + 48 launches a sync
     # protects one part (1 / p) of a chunk for every pod
     p4 = max(UNO_PODS)
@@ -2029,18 +2081,10 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2):
     check(torch.equal(rebuilt4, rows4[:, :ny]),
           f"decode at p={p4}: rows {{0, 1}} lost")
     del rows4, parity4, surv4, rebuilt4
-    qb, sb = q.view(n_pods, nb, 256), s[..., None]
     record("dequant_int8", uno_path(4), "src/repro/kernels/quant_pallas.py:59",
            lambda: K.dequant_int8(q, s), lambda: ref.dequant_int8_ref(q, s),
            n_pods * (c + 4 * nb + 4 * c), n_pods * c,
            library=lambda: torch.mul(qb, sb))
-    xb = x.view(n_pods, nb, 256)
-    record("dequant_int8/acc", uno_path(2),
-           "src/repro/kernels/quant_pallas.py:59",
-           lambda: K.dequant_int8(q, s, x),
-           lambda: ref.dequant_int8_ref(q, s, acc=x),
-           n_pods * (c + 4 * nb + 8 * c), 2 * n_pods * c,
-           library=lambda: torch.addcmul(xb, qb, sb))
     # both uses at block counts on either side of K5's per-warp span of
     # 4 blocks (the tail), with the addend's rows strided
     for n_blocks in (b for b in (1, 2, 3, 5, 4099) if 256 * (b + 1) <= c):
@@ -2180,8 +2224,8 @@ def unorc_sync_phase(dev, card, cfg, n_syncs: int = UNO_SYNCS):
 
 # ------------------------------------------------------------- phase 13
 
-def train_path(p: int) -> str:
-    return f"train:{UNO_ARCH}:p{p}:cuda"
+def train_path(p: int, arch: str = UNO_ARCH) -> str:
+    return f"train:{arch}:p{p}:cuda"
 
 
 def _train_batches(cfg, dev, n, start=0):
@@ -2191,13 +2235,13 @@ def _train_batches(cfg, dev, n, start=0):
         for i in range(n)]
 
 
-def _train_run(step, state, batches):
+def _train_run(step, state, batches, snap: bool = True):
     """Every batch through `step` (step_idx = its index), one host-clock
     time per step to a synchronize; returns the state, the losses, the
-    seconds per step and the params after step 1."""
+    seconds per step and (with `snap`) a copy of the params after step 1."""
     import torch
     from repro_torch.models import params as P
-    losses, secs, snap = [], [], None
+    losses, secs, snapped = [], [], None
     for i, batch in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2205,9 +2249,9 @@ def _train_run(step, state, batches):
         losses.append(float(m["loss"]))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        if i == 1:
-            snap = [t.clone() for t in P.flatten(state["params"])[0]]
-    return state, losses, secs, snap
+        if i == 1 and snap:
+            snapped = [t.clone() for t in P.flatten(state["params"])[0]]
+    return state, losses, secs, snapped
 
 
 def _states_equal(a, b) -> bool:
@@ -2356,25 +2400,39 @@ def progress(what: str, rec: dict):
                       **{k: rec[k] for k in keys if k in rec}}), flush=True)
 
 
-def train_phase(dev, card, cfg, uno_records):
-    """smollm-135m training on the card: the baseline step and the Uno
-    step at each pod count (K3-K5 inside the step), checked against each
-    other and timed; the Uno update on the kernels against the plain
-    backend on the same stacked gradients; the restart drill.  Returns
-    kernel records for the train paths (the unorc_kernels phase's
-    measurements at the same shapes, with the train paths' counts)."""
+def _falls(cfg, batch, losses, params, rec, what):
+    """Finite losses, and the loss of the first batch lower under the
+    trained params than under the initial ones (step 0's loss): one
+    batch before and after, so that no batch-to-batch spread enters."""
     import torch
-    from repro_torch import models, train
-    from repro_torch.configs.base import RunConfig
+    from repro_torch import models
+    check(all(math.isfinite(x) for x in losses), f"{what}: non-finite")
+    with torch.no_grad():
+        rec["held_loss"] = [losses[0],
+                            float(models.loss_fn(params, batch, cfg))]
+    check(rec["held_loss"][1] < rec["held_loss"][0],
+          f"{what}: the first batch's loss did not fall "
+          f"({rec['held_loss']})")
+
+
+def train_runs(dev, cfg, run, batches, warm, pods, out):
+    """The baseline step and the Uno step at each pod count of `pods`
+    (K3-K5 inside the step) from the same seeded state over `batches`,
+    the first `warm` untimed; fills out["baseline"] and out["uno"]:
+    ms/step, tokens/s, peak memory, the sync's share (events and device
+    time), profiles; checks the losses fall, every Uno loss within 1e-2
+    of the baseline's, the params after step 1 within 5e-4, each Uno
+    path's launch counts, and `sync_and_update` on the kernels bitwise
+    the plain backend on the same stacked gradients.  Paths
+    `train:<arch>:base` and `train_path(p, arch)`."""
+    import torch
+    from repro_torch import train
     from repro_torch.models import params as P
 
-    t_phase = time.perf_counter()
-    run = RunConfig(**TRAIN_RUN)
-    n = TRAIN_WARM + TRAIN_STEPS
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    batches = _train_batches(cfg, dev, n)
-    fma = _fma_on_card(dev)
-    timed = slice(TRAIN_WARM, n)
+    arch = cfg.name
+    n = len(batches)
+    tokens = batches[0]["targets"].numel()
+    timed = slice(warm, n)
 
     def summary(losses, secs):
         ms = statistics.median(secs[timed]) * 1e3
@@ -2382,39 +2440,23 @@ def train_phase(dev, card, cfg, uno_records):
                     ms_per_step_all=[t * 1e3 for t in secs],
                     first_step_s=secs[0], losses=losses)
 
-    def falls(losses, params, rec, what):
-        """Finite losses, and the loss of the first batch lower under the
-        trained params than under the initial ones (step 0's loss): one
-        batch before and after, so that no batch-to-batch spread enters."""
-        check(all(math.isfinite(x) for x in losses), f"{what}: non-finite")
-        with torch.no_grad():
-            rec["held_loss"] = [losses[0], float(
-                models.loss_fn(params, batches[0], cfg))]
-        check(rec["held_loss"][1] < rec["held_loss"][0],
-              f"{what}: the first batch's loss did not fall "
-              f"({rec['held_loss']})")
-
     base_step = train.make_train_step(cfg, run, device=dev)
     torch.cuda.reset_peak_memory_stats()
     base_state, base_losses, base_secs, base_snap = drive(
-        f"train:{UNO_ARCH}:base", lambda: _train_run(
+        f"train:{arch}:base", lambda: _train_run(
             base_step, train.make_train_state(cfg, seed=0, device=dev),
             batches), plain=True)
     # filled as the runs go, so a failed check leaves what came before it
-    out = RESULTS["train"] = dict(
-        arch=UNO_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        tokens_per_step=tokens, run=TRAIN_RUN, warmup_steps=TRAIN_WARM,
-        timed_steps=TRAIN_STEPS, fma_check=fma,
-        baseline=dict(**summary(base_losses, base_secs),
-                      peak_mem_bytes=torch.cuda.max_memory_allocated()),
-        uno={})
-    falls(base_losses, base_state["params"], out["baseline"], "baseline")
-    progress("baseline", out["baseline"])
+    out["baseline"] = dict(**summary(base_losses, base_secs),
+                           peak_mem_bytes=torch.cuda.max_memory_allocated())
+    out["uno"] = {}
+    _falls(cfg, batches[0], base_losses, base_state["params"],
+           out["baseline"], f"{arch} baseline")
+    progress(f"{arch} baseline", out["baseline"])
     out["baseline"]["profile"] = _step_device_profile(
         base_step, cfg, dev, batches[0])
-    progress("baseline profile", out["baseline"]["profile"])
-    records = []
-    for p in UNO_PODS:
+    progress(f"{arch} baseline profile", out["baseline"]["profile"])
+    for p in pods:
         step = train.make_train_step(cfg, run, n_pods=p, device=dev)
         events = []
         sync = step.uno_sync
@@ -2429,9 +2471,10 @@ def train_phase(dev, card, cfg, uno_records):
             return grads
 
         step.uno_sync = timed_sync
+        path = train_path(p, arch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        state, losses, secs, snap = drive(train_path(p), lambda: _train_run(
+        state, losses, secs, snap = drive(path, lambda: _train_run(
             step, train.make_train_state(cfg, seed=0, device=dev), batches))
         peak = torch.cuda.max_memory_allocated()
         step.uno_sync = sync
@@ -2452,29 +2495,32 @@ def train_phase(dev, card, cfg, uno_records):
                 float((a.float() - b.float()).abs().max()) for a, b in
                 zip(P.flatten(state["params"])[0],
                     P.flatten(base_state["params"])[0])),
-            launches=PATHS[train_path(p)])
-        falls(losses, state["params"], rec, f"uno p={p}")
-        progress(f"uno p={p}", rec)
+            launches=PATHS[path])
+        _falls(cfg, batches[0], losses, state["params"], rec,
+               f"{arch} uno p={p}")
+        progress(f"{arch} uno p={p}", rec)
         check(max(loss_diff) <= TRAIN_LOSS_ATOL,
-              f"uno p={p}: loss off the baseline's by {max(loss_diff)}")
+              f"{arch} uno p={p}: loss off the baseline's by "
+              f"{max(loss_diff)}")
         check(param_diff <= TRAIN_PARAM_ATOL,
-              f"uno p={p}: params after step 1 off by {param_diff}")
+              f"{arch} uno p={p}: params after step 1 off by {param_diff}")
         want = {k: v * n for k, v in sync_launches(run, p).items()}
-        check(PATHS[train_path(p)] == want,
-              f"{train_path(p)} launched {PATHS[train_path(p)]}, "
-              f"want {want}")
+        check(PATHS[path] == want,
+              f"{path} launched {PATHS[path]}, want {want}")
         # the Uno update on the kernels and on the plain backend, the
         # same stacked gradients
         _, stacked = step.pod_grads(state["params"], batches[0])
         plain = train.make_train_step(cfg, run, n_pods=p, device=dev,
                                       backend="plain")
         s_k, g_k = step.sync_and_update(state, stacked, n)
-        s_p, g_p = drive(f"train:{UNO_ARCH}:p{p}:plain",
+        s_p, g_p = drive(f"train:{arch}:p{p}:plain",
                          lambda: plain.sync_and_update(state, stacked, n),
                          plain=True)
         bitwise = _states_equal(s_k, s_p) and _states_equal(g_k, g_p)
-        check(bitwise, f"uno p={p}: sync_and_update on the kernels differs "
-              "from the plain backend")
+        check(bitwise, f"{arch} uno p={p}: sync_and_update on the kernels "
+              "differs from the plain backend")
+        rec["grad_dtypes"] = sorted({str(g.dtype).removeprefix("torch.")
+                                     for g in P.flatten(g_k)[0]})
         prof_sync = device_profile(lambda: step.uno_sync(stacked), 3)
         del s_k, s_p, g_k, g_p, stacked
         prof_step = _step_device_profile(step, cfg, dev, batches[0])
@@ -2486,13 +2532,32 @@ def train_phase(dev, card, cfg, uno_records):
             if prof_step["device_busy_ms_per_call"] else None,
             profile=prof_step, sync_profile=prof_sync,
             kernels_vs_plain_bitwise=bitwise)
-        for r in uno_records:
-            if r["path"] == uno_path(p):
-                records.append(dict(r, name=f"{r['name']}@train",
-                                    path=train_path(p)))
         del state, snap
         torch.cuda.empty_cache()
     del base_state, base_snap
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev, card, cfg, uno_records):
+    """smollm-135m training on the card: `train_runs` at each pod count
+    of UNO_PODS, then the restart drill.  Returns kernel records for the
+    train paths (the unorc_kernels phase's measurements at the same
+    shapes, with the train paths' counts)."""
+    import torch
+    from repro_torch.configs.base import RunConfig
+
+    t_phase = time.perf_counter()
+    run = RunConfig(**TRAIN_RUN)
+    batches = _train_batches(cfg, dev, TRAIN_WARM + TRAIN_STEPS)
+    out = RESULTS["train"] = dict(
+        arch=UNO_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        tokens_per_step=TRAIN_BATCH * TRAIN_SEQ, run=TRAIN_RUN,
+        warmup_steps=TRAIN_WARM, timed_steps=TRAIN_STEPS,
+        fma_check=_fma_on_card(dev))
+    train_runs(dev, cfg, run, batches, TRAIN_WARM, UNO_PODS, out)
+    records = [dict(r, name=f"{r['name']}@train", path=train_path(p))
+               for p in UNO_PODS for r in uno_records
+               if r["path"] == uno_path(p)]
     out["restart_drill"] = _restart_drill(cfg, run, dev,
                                           out["uno"]["p2"]["losses"])
     out["seconds"] = time.perf_counter() - t_phase
@@ -2640,15 +2705,23 @@ def validate_phase(dev, card):
 
 # ------------------------------------------------------------- phase 15
 
-def serve_path(mix: str) -> str:
-    return f"serve:{SERVE_ARCH}:{mix}"
+def serve_path(mix: str, arch: str = SERVE_ARCH) -> str:
+    return f"serve:{arch}:{mix}"
 
 
-def _serve_mix(cfg, params, dev, mix):
+def _cache_bytes(cfg, batch: int, max_len: int) -> int:
+    """The serving cache's bytes: K/V, or the SSM's conv / SSD states."""
+    from repro_torch import models
+    from repro_torch.models import params as P
+    return sum(t.numel() * t.element_size() for t in P.flatten(
+        models.abstract_cache(cfg, batch, max_len))[0])
+
+
+def _serve_mix(cfg, params, dev, mix, path=None):
     """One request mix served twice through `launch.serve.serve` (the
-    second run timed, under the peak-memory counter), the completions of
-    both runs bitwise equal; then one wave's prefill timed and 10 decode
-    steps profiled."""
+    second run timed, under the peak-memory counter, as `path`), the
+    completions of both runs bitwise equal; then one wave's prefill
+    timed and 10 decode steps profiled."""
     import torch
     from repro_torch.launch import serve as S
     max_len = mix["prompt"] + mix["gen"]
@@ -2663,7 +2736,7 @@ def _serve_mix(cfg, params, dev, mix):
     _, outs0 = run()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stats, outs = drive(serve_path(mix["name"]), run, plain=True)
+    stats, outs = drive(path or serve_path(mix["name"]), run, plain=True)
     peak = torch.cuda.max_memory_allocated()
     check(outs == outs0, f"serve {mix['name']}: completions differ "
           "between two runs")
@@ -2690,8 +2763,7 @@ def _serve_mix(cfg, params, dev, mix):
     return dict(
         **{k: mix[k] for k in ("requests", "prompt", "gen", "batch")},
         waves=-(-mix["requests"] // mix["batch"]), max_len=max_len,
-        kv_cache_bytes=2 * cfg.n_layers * mix["batch"] * max_len
-        * cfg.n_kv_heads * cfg.head_dim * 2,
+        cache_bytes=_cache_bytes(cfg, mix["batch"], max_len),
         ttft_p50_ms=stats["ttft_p50_ms"], itl_p50_ms=stats["itl_p50_ms"],
         tok_per_s=stats["tok_per_s"], wall_s=stats["wall_s"],
         tokens=stats["tokens"], prefill_ms=prefill_ms,
@@ -2699,30 +2771,33 @@ def _serve_mix(cfg, params, dev, mix):
         completions_bitwise_repeat=True, first_completion=outs[0][:16])
 
 
-def _serve_card_vs_cpu(dev):
-    """The serving example's reduced qwen2.5 in float32 (TF32 off), the
-    same seeded params on the card and on the CPU: prefill logits and one
-    decode step's within 1e-4 normalized, and the example's 12 requests
-    completed with the same greedy tokens."""
+def _serve_card_vs_cpu(dev, cfg=None, n_req: int = 12, prompt: int = 48,
+                       gen: int = 24, batch: int = 4):
+    """A reduced model in float32 (TF32 off; default the serving example's
+    qwen2.5), the same seeded params on the card and on the CPU: prefill
+    logits and one decode step's within 1e-4 normalized, and `n_req`
+    requests of `prompt` + `gen` tokens in waves of `batch` completed
+    with the same greedy tokens."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch import models
     from repro_torch.launch import serve as S, serve_batched
     from repro_torch.models import params as P
-    cfg = dataclasses.replace(serve_batched.example_config(),
+    cfg = dataclasses.replace(cfg or serve_batched.example_config(),
                               param_dtype="float32",
                               compute_dtype="float32")
     leaves, treedef = P.flatten(models.init_params(
         cfg, torch.Generator().manual_seed(0)))
     cpu = P.unflatten(treedef, [l.float() for l in leaves])
     card_p = P.unflatten(treedef, [l.float().to(dev) for l in leaves])
+    max_len = prompt + gen
     x = torch.from_numpy(np.stack([r.prompt for r in S.make_requests(
-        cfg, 4, 48, 24)]))
+        cfg, batch, prompt, gen)]))
     errs = {}
     with torch.inference_mode(), _cpu_threads(1):
-        want_l, want_c, pos = models.prefill(cpu, x, cfg, 72)
-        got_l, got_c, _ = models.prefill(card_p, x.to(dev), cfg, 72)
+        want_l, want_c, pos = models.prefill(cpu, x, cfg, max_len)
+        got_l, got_c, _ = models.prefill(card_p, x.to(dev), cfg, max_len)
         tok = want_l.argmax(-1).to(torch.int32)[:, None]
         want_d, _ = models.decode_step(cpu, want_c, tok, pos, cfg)
         got_d, _ = models.decode_step(card_p, got_c, tok.to(dev), pos, cfg)
@@ -2731,18 +2806,28 @@ def _serve_card_vs_cpu(dev):
         errs[name] = float((got.cpu() - want).abs().max()
                            / want.abs().max())
         check(errs[name] <= SERVE_CARD_RTOL,
-              f"serve qwen2.5 f32 {name} logits: card vs CPU {errs[name]}")
+              f"serve {cfg.name} f32 {name} logits: card vs CPU "
+              f"{errs[name]}")
     outs = {}
     for where, prm in (("cpu", cpu), ("card", card_p)):
-        reqs = S.make_requests(cfg, 12, 48, 24)
+        reqs = S.make_requests(cfg, n_req, prompt, gen)
         with _cpu_threads(1):
-            S.serve(cfg, reqs, batch=4, max_len=72, params=prm,
+            S.serve(cfg, reqs, batch=batch, max_len=max_len, params=prm,
                     device="cpu" if where == "cpu" else dev)
         outs[where] = [r.out for r in reqs]
-    check(outs["card"] == outs["cpu"], "serve qwen2.5 f32: greedy "
+    check(outs["card"] == outs["cpu"], f"serve {cfg.name} f32: greedy "
           "completions on the card differ from the CPU's")
     return dict(logits_rel_err=errs, tokens=sum(map(len, outs["card"])),
                 completions_equal=True)
+
+
+def _serve_progress(what, rec):
+    progress(what, dict(
+        ms_per_step=rec["itl_p50_ms"], tokens_per_s=rec["tok_per_s"],
+        peak_mem_bytes=rec["peak_mem_bytes"], wall_ms=rec["wall_s"] * 1e3,
+        device_kernels=rec["decode_profile"]["device_kernels_per_call"],
+        device_busy_ms_per_call=rec["decode_profile"][
+            "device_busy_ms_per_call"]))
 
 
 def serve_phase(dev, card):
@@ -2763,18 +2848,116 @@ def serve_phase(dev, card):
     for name, mix in SERVE_MIXES.items():
         rec = out["mixes"][name] = _serve_mix(cfg, params, dev,
                                               dict(mix, name=name))
-        progress(f"serve {name}", dict(
-            ms_per_step=rec["itl_p50_ms"], tokens_per_s=rec["tok_per_s"],
-            peak_mem_bytes=rec["peak_mem_bytes"],
-            wall_ms=rec["wall_s"] * 1e3,
-            device_kernels=rec["decode_profile"]["device_kernels_per_call"],
-            device_busy_ms_per_call=rec["decode_profile"][
-                "device_busy_ms_per_call"]))
+        _serve_progress(f"serve {name}", rec)
     del params
     torch.cuda.empty_cache()
     out["qwen2_5_reduced_f32_card_vs_cpu"] = _serve_card_vs_cpu(dev)
     out["seconds"] = time.perf_counter() - t_phase
     emit("serve", **card, **out)
+
+
+# ------------------------------------------------------------- phase 16
+
+def _moe_cfg():
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(FAM_MOE), n_layers=FAM_MOE_LAYERS)
+
+
+def families_phase(dev, card):
+    """The MoE, SSM and hybrid families on the card.  mamba2-130m at full
+    width and depth: `train_runs` at p = 2 (paths
+    `train:mamba2-130m:base` / `:p2:cuda`; its K3-K5 records at one chunk
+    of its mixed bf16 / float32 gradient, returned), then served on the
+    two mixes of SERVE_MIXES (`serve:mamba2-130m:*`); qwen3-moe at full
+    width with FAM_MOE_LAYERS layers served on the default mix and
+    trained with its Muon (bf16 momentum, the state donated) for 3 + 5
+    baseline steps; the reduced mamba2, qwen3-moe and jamba in float32
+    on the card against the CPU."""
+    import torch
+    from repro_torch import models, train
+    from repro_torch.configs.base import RunConfig, reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import params as P
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    # --- mamba2-130m training, baseline and Uno at p = 2
+    cfg = get_config(FAM_SSM)
+    run = RunConfig(**TRAIN_RUN)
+    n_params = P.param_count(P.param_defs(cfg))
+    records, _ = unorc_kernel_phase(dev, cfg, path_p2=train_path(2, FAM_SSM),
+                                    tag=f"@train:{FAM_SSM}", extended=False)
+    out = RESULTS["families"] = dict(records=records, card_vs_cpu={},
+                                     allocated_at_start=held)
+    batches = _train_batches(cfg, dev, FAM_WARM + FAM_STEPS)
+    tr = out["train_ssm"] = dict(
+        arch=FAM_SSM, n_params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        tokens_per_step=TRAIN_BATCH * TRAIN_SEQ, run=TRAIN_RUN,
+        warmup_steps=FAM_WARM, timed_steps=FAM_STEPS)
+    train_runs(dev, cfg, run, batches, FAM_WARM, (2,), tr)
+    check(tr["uno"]["p2"]["grad_dtypes"] == ["bfloat16", "float32"],
+          f"{FAM_SSM}: gradient dtypes {tr['uno']['p2']['grad_dtypes']}")
+    del batches
+    # --- mamba2-130m serving
+    params = models.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0))
+    sv = out["serve_ssm"] = dict(arch=FAM_SSM, mixes={})
+    for name, mix in SERVE_MIXES.items():
+        rec = sv["mixes"][name] = _serve_mix(
+            cfg, params, dev, dict(mix, name=name), serve_path(name, FAM_SSM))
+        rec["smollm_kv_cache_bytes"] = _cache_bytes(
+            get_config(SERVE_ARCH), mix["batch"], rec["max_len"])
+        _serve_progress(f"serve {FAM_SSM} {name}", rec)
+    del params
+    torch.cuda.empty_cache()
+    # --- qwen3-moe at full width, FAM_MOE_LAYERS layers
+    mcfg = _moe_cfg()
+    moe = out["moe"] = dict(
+        arch=f"{FAM_MOE}@{FAM_MOE_LAYERS}L",
+        reduced=f"n_layers {get_config(FAM_MOE).n_layers} -> "
+        f"{FAM_MOE_LAYERS}", n_params=P.param_count(P.param_defs(mcfg)),
+        param_bytes=P.param_bytes(P.param_defs(mcfg)))
+    params = models.init_params(
+        mcfg, torch.Generator(device=dev).manual_seed(0))
+    mix = dict(SERVE_MIXES["defaults"], name="defaults")
+    rec = moe["serve"] = _serve_mix(mcfg, params, dev, mix,
+                                    serve_path("defaults", moe["arch"]))
+    # a decode step's expert products read every expert's weights (cap 8
+    # slots each): the whole parameter set, once a step
+    rec["decode_bound_ms"] = bound_ms(moe["param_bytes"])
+    _serve_progress(f"serve {moe['arch']}", rec)
+    del params
+    torch.cuda.empty_cache()
+    batches = _train_batches(mcfg, dev, FAM_WARM + FAM_MOE_STEPS)
+    step = train.make_train_step(mcfg, run, device=dev, donate=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, secs, _ = drive(
+        f"train:{moe['arch']}:base", lambda: _train_run(
+            step, train.make_train_state(mcfg, seed=0, device=dev), batches,
+            snap=False), plain=True)
+    ms = statistics.median(secs[FAM_WARM:]) * 1e3
+    moe["train"] = dict(
+        optimizer=mcfg.optimizer, opt_state_dtype=mcfg.opt_state_dtype,
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, warmup_steps=FAM_WARM,
+        timed_steps=FAM_MOE_STEPS, ms_per_step=ms,
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3),
+        ms_per_step_all=[t * 1e3 for t in secs], losses=losses,
+        peak_mem_bytes=torch.cuda.max_memory_allocated())
+    _falls(mcfg, batches[0], losses, state["params"], moe["train"],
+           f"{moe['arch']} baseline")
+    progress(f"train {moe['arch']}", moe["train"])
+    del state, batches, step
+    torch.cuda.empty_cache()
+    # --- the reduced families in float32, card against CPU
+    for arch in FAM_REDUCED:
+        out["card_vs_cpu"][arch] = _serve_card_vs_cpu(
+            dev, reduced(get_config(arch)), n_req=6, prompt=32, gen=16,
+            batch=3)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("families", **card, **out)
+    return records
 
 
 # ------------------------------------------------------------- main
@@ -2839,6 +3022,7 @@ def main() -> int:
     dynamics_phase(dev, card, records, plan)
     records += sweeps_phase(dev, card)
     records += sharded_grid_phase(fs, dev, card)
+    del fs, fs_mp
     service_phase(dev, card, records)
     records += validate_phase(dev, card)
     uno_cfg = get_config(UNO_ARCH)
@@ -2848,6 +3032,7 @@ def main() -> int:
     records += uno_records
     records += train_phase(dev, card, uno_cfg, uno_records)
     serve_phase(dev, card)
+    records += families_phase(dev, card)
     for rec in records:
         rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "

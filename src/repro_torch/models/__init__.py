@@ -1,37 +1,31 @@
 """Uniform model API with family dispatch (the reference's
 ``repro.models``): parameter shapes and initialization (`params`), the
-dense decoder-only LM (`transformer`, `layers`) for training and
-serving (`prefill`, `decode_step`, the KV cache's `cache_defs`), and
-meta-device stand-ins for the params, the cache and each shape cell's
-inputs.
-
-Only the dense family is ported.  The MoE, SSM and hybrid families raise
-NotImplementedError until ROADMAP item 9b (the remaining LLM families)
-ports them.
+four families for training and serving (`prefill`, `decode_step`, the
+cache's `cache_defs`), and meta-device stand-ins for the params, the
+cache and each shape cell's inputs.  Dense and MoE decoder-only LMs are
+`transformer` (the expert FFN in `moe`), the pure-SSM LM is `ssm` (its
+blocks in `mamba2`), the attention / Mamba / MoE hybrid is `hybrid`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models import params, transformer
-
-_NOT_PORTED = ("moe", "ssm", "hybrid")
+from repro_torch.models import hybrid, params, ssm, transformer
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return transformer
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} model family is not ported yet "
-            "(ROADMAP item 9b)")
+    if cfg.family == "ssm":
+        return ssm
+    if cfg.family == "hybrid":
+        return hybrid
     raise ValueError(cfg.family)
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    _mod(cfg)
-    return params.param_defs(cfg)
+    return _mod(cfg).param_defs(cfg)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:

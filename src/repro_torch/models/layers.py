@@ -23,6 +23,18 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
+def checkpointed(fn):
+    """`fn` under a non-reentrant ``torch.utils.checkpoint`` when
+    gradients are on (``jax.checkpoint``: the backward pass recomputes
+    its intermediates from its inputs); called directly otherwise."""
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
+
+
 def rms_norm(x, w, eps):
     xf = x.to(F32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
@@ -100,8 +112,7 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         sl = slice(j * blk, (j + 1) * blk)
         args = (m, l, acc, qf, k[:, sl], v[:, sl], q_pos, k_pos, causal,
                 kv_len)
-        m, l, acc = (checkpoint(_kv_block_step, *args, use_reentrant=False)
-                     if torch.is_grad_enabled() else _kv_block_step(*args))
+        m, l, acc = checkpointed(_kv_block_step)(*args)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
 

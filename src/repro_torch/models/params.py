@@ -1,15 +1,16 @@
-"""Parameter shapes of the dense LM family, and pytrees of tensors in JAX's
-leaf order.
+"""Parameter metadata shared by every model family, and pytrees of
+tensors in JAX's leaf order: the reference's ``repro.models.api``.
 
-`param_defs(cfg)` restates the reference's ``repro.models.transformer
-.param_defs`` (and ``api.ParamDef``/``param_count``/``param_bytes``) as
-shapes and dtypes; `abstract_params` gives them as meta-device tensors
-(``api.abstract_params``); `init_params` materializes them
-(``api.init_params``) from an explicit
-`torch.Generator` on the target device.  The draws are torch's, not
-``jax.random``'s: parity with the reference comes from carrying its
-weights across with `tree_from_arrays`.  The dense family is covered; the
-others raise.
+Each family module (`transformer`, `ssm`, `hybrid`) gives its tree of
+`ParamDef` (shape, logical axes, dtype, init) as `param_defs(cfg)`;
+`param_defs` here dispatches on the family.  `abstract_params` gives a
+tree as meta-device tensors (``api.abstract_params``), `init_params`
+materializes it (``api.init_params``) from an explicit
+`torch.Generator` on the target device, leaf by leaf in JAX's order,
+each leaf in its own dtype (the MoE router and the SSM's ``dt_bias``,
+``A_log`` and ``D`` are float32 leaves in a bfloat16 tree).  The draws
+are torch's, not ``jax.random``'s: parity with the reference comes from
+carrying its weights across with `tree_from_arrays`.
 
 A parameter or gradient tree is a nested dict of tensors.  `flatten`
 walks it in ``jax.tree.flatten``'s order, which sorts dict keys at every
@@ -44,53 +45,11 @@ class ParamDef:
             raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
-def attn_param_defs(cfg: ModelConfig, n_layers: int) -> dict:
-    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    L = (n_layers,)
-    ax = (None,)
-    defs = {
-        "norm": ParamDef(L + (d,), ax + (None,), init="ones"),
-        "wq": ParamDef(L + (d, qd), ax + ("fsdp", "tensor")),
-        "wk": ParamDef(L + (d, kvd), ax + ("fsdp", "tensor")),
-        "wv": ParamDef(L + (d, kvd), ax + ("fsdp", "tensor")),
-        "wo": ParamDef(L + (qd, d), ax + ("tensor", "fsdp")),
-    }
-    if cfg.qkv_bias:
-        defs["bq"] = ParamDef(L + (qd,), ax + ("tensor",), init="zeros")
-        defs["bk"] = ParamDef(L + (kvd,), ax + ("tensor",), init="zeros")
-        defs["bv"] = ParamDef(L + (kvd,), ax + ("tensor",), init="zeros")
-    return defs
-
-
-def mlp_param_defs(cfg: ModelConfig, n_layers: int, d_ff: int) -> dict:
-    d = cfg.d_model
-    L = (n_layers,)
-    ax = (None,)
-    defs = {
-        "norm": ParamDef(L + (d,), ax + (None,), init="ones"),
-        "w_up": ParamDef(L + (d, d_ff), ax + ("fsdp", "tensor")),
-        "w_down": ParamDef(L + (d_ff, d), ax + ("tensor", "fsdp")),
-    }
-    if cfg.act == "swiglu":
-        defs["w_gate"] = ParamDef(L + (d, d_ff), ax + ("fsdp", "tensor"))
-    return defs
-
-
 def param_defs(cfg: ModelConfig) -> dict:
-    """The ParamDef tree of a dense decoder-only LM."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"param_defs: the {cfg.family!r} family is not ported yet")
-    defs = {
-        "layers": {"attn": attn_param_defs(cfg, cfg.n_layers),
-                   "mlp": mlp_param_defs(cfg, cfg.n_layers, cfg.d_ff)},
-        "final_norm": ParamDef((cfg.d_model,), (None,), init="ones"),
-        "lm_head": ParamDef((cfg.d_model, cfg.vocab), ("fsdp", "vocab")),
-    }
-    if cfg.input_mode == "tokens" and not cfg.tie_embeddings:
-        defs["embed"] = ParamDef((cfg.vocab, cfg.d_model), ("vocab", "fsdp"),
-                                 scale=1.0)
-    return defs
+    """The ParamDef tree of `cfg`'s family: the family module's
+    `param_defs` (``models.param_defs``)."""
+    from repro_torch import models
+    return models.param_defs(cfg)
 
 
 def _materialize(d: ParamDef, generator: torch.Generator) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family: the reference's
+"""Decoder-only LM, dense and MoE families: the reference's
 ``repro.models.transformer`` (training and serving) in PyTorch.
 
 Parameters are a nested dict of tensors under the reference tree's names,
@@ -7,8 +7,9 @@ each layer's weights stacked along a leading layer axis
 carries across to and from the reference leaf for leaf.  `forward` unbinds
 every stacked leaf once and runs the layers in a Python loop in place of
 the reference's scan: the backward pass then stacks each leaf's layer
-gradients in one copy.  `Transformer` holds the same tree as an
-``nn.Module``.  The MoE FFN is not ported yet (ROADMAP item 9b).
+gradients in one copy.  The FFN is a dense MLP (``layers["mlp"]``) or,
+for ``family == "moe"``, the top-k expert FFN (``layers["moe"]``,
+`models.moe`).  `Transformer` holds the same tree as an ``nn.Module``.
 
 Serving (`cache_defs`, `prefill`, `decode_step`) keeps the reference's
 semantics: `prefill` runs the prompt as one causal pass (left padding is
@@ -31,12 +32,68 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
-from repro_torch.models.layers import (apply_rope, chunked_softmax_xent,
+from repro_torch.models.layers import (apply_rope, checkpointed,
+                                       chunked_softmax_xent,
                                        decode_attention, flash_attention,
                                        mlp, rms_norm, rope_cos_sin)
+from repro_torch.models.moe import moe_ffn, moe_param_defs
 
 REMAT_POLICIES = ("full", "dots", "none")
 F32 = torch.float32
+
+
+# ---------------------------------------------------------------- param defs
+
+def attn_param_defs(cfg: ModelConfig, n_layers: int) -> dict:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    L = (n_layers,)
+    ax = (None,)
+    defs = {
+        "norm": P.ParamDef(L + (d,), ax + (None,), init="ones"),
+        "wq": P.ParamDef(L + (d, qd), ax + ("fsdp", "tensor")),
+        "wk": P.ParamDef(L + (d, kvd), ax + ("fsdp", "tensor")),
+        "wv": P.ParamDef(L + (d, kvd), ax + ("fsdp", "tensor")),
+        "wo": P.ParamDef(L + (qd, d), ax + ("tensor", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = P.ParamDef(L + (qd,), ax + ("tensor",), init="zeros")
+        defs["bk"] = P.ParamDef(L + (kvd,), ax + ("tensor",), init="zeros")
+        defs["bv"] = P.ParamDef(L + (kvd,), ax + ("tensor",), init="zeros")
+    return defs
+
+
+def mlp_param_defs(cfg: ModelConfig, n_layers: int, d_ff: int) -> dict:
+    d = cfg.d_model
+    L = (n_layers,)
+    ax = (None,)
+    defs = {
+        "norm": P.ParamDef(L + (d,), ax + (None,), init="ones"),
+        "w_up": P.ParamDef(L + (d, d_ff), ax + ("fsdp", "tensor")),
+        "w_down": P.ParamDef(L + (d_ff, d), ax + ("tensor", "fsdp")),
+    }
+    if cfg.act == "swiglu":
+        defs["w_gate"] = P.ParamDef(L + (d, d_ff), ax + ("fsdp", "tensor"))
+    return defs
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    """The ParamDef tree of a dense or MoE decoder-only LM."""
+    L = cfg.n_layers
+    layers = {"attn": attn_param_defs(cfg, L)}
+    if cfg.family == "moe":
+        layers["moe"] = moe_param_defs(cfg, L, cfg.d_ff_expert)
+    else:
+        layers["mlp"] = mlp_param_defs(cfg, L, cfg.d_ff)
+    defs = {
+        "layers": layers,
+        "final_norm": P.ParamDef((cfg.d_model,), (None,), init="ones"),
+        "lm_head": P.ParamDef((cfg.d_model, cfg.vocab), ("fsdp", "vocab")),
+    }
+    if cfg.input_mode == "tokens" and not cfg.tie_embeddings:
+        defs["embed"] = P.ParamDef((cfg.vocab, cfg.d_model),
+                                   ("vocab", "fsdp"), scale=1.0)
+    return defs
+
 
 # ---------------------------------------------------------------- blocks
 
@@ -78,19 +135,24 @@ def attention_decode_block(h, p, cfg, k_cache, v_cache, pos: int):
     return torch.matmul(o.reshape(B, 1, cfg.q_dim), p["wo"])
 
 
-def _residual_ffn(h, out, lp, cfg):
-    """The attention's residual sum h + out, then the FFN block on it.
-    The jitted reference fuses that sum into the FFN norm's float32 cast:
+def residual_ffn(h, out, p, cfg, moe: bool):
+    """The residual sum h + out (`out` None: h alone), then the FFN block
+    with params `p` on it: the MoE FFN when `moe`, else the MLP.  The
+    jitted reference fuses that sum into the FFN norm's float32 cast:
     the norm reads the float32 sum, the residual stream its value
     rounded to the compute dtype.  The port does the same (in float32
     the two are one value)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family!r} FFN is not ported")
-    s = h.to(F32) + out.to(F32)
+    s = h.to(F32) if out is None else h.to(F32) + out.to(F32)
     h = s.to(h.dtype)
-    p = lp["mlp"]
     hn = rms_norm(s, p["norm"], cfg.norm_eps).to(h.dtype)
+    if moe:
+        return h + moe_ffn(hn, p, cfg, cfg.d_ff_expert)
     return h + mlp(hn, p, cfg.act)
+
+
+def _residual_ffn(h, out, lp, cfg):
+    moe = cfg.family == "moe"
+    return residual_ffn(h, out, lp["moe"] if moe else lp["mlp"], cfg, moe)
 
 
 def _layer(h, lp, cfg, positions, want_kv=False):
@@ -118,15 +180,15 @@ def _remat(fn, cfg):
         raise ValueError(f"remat_policy {cfg.remat_policy!r}")
     if cfg.remat_policy == "none":
         return fn
-    ctx = (functools.partial(create_selective_checkpoint_contexts,
-                             _dots_policy)
-           if cfg.remat_policy == "dots" else None)
+    if cfg.remat_policy == "full":
+        return checkpointed(fn)
+    ctx = functools.partial(create_selective_checkpoint_contexts,
+                            _dots_policy)
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        kw = {"context_fn": ctx} if ctx is not None else {}
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
 
     return wrapped
 
@@ -152,8 +214,6 @@ def forward(params, inputs, cfg, *, collect_kv=False):
     """inputs: tokens (B, S) int or embeddings (B, S, d).  Returns the
     final hidden states (B, S, d), and with `collect_kv` also (ks, vs),
     each layer's K and V stacked to (n_layers, B, S, Hkv, D)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported")
     h = embed_inputs(params, inputs, cfg)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
@@ -247,12 +307,12 @@ class _Tree(nn.Module):
 
 
 class Transformer(_Tree):
-    """The dense LM as an ``nn.Module``: each leaf of the parameter tree an
-    ``nn.Parameter`` under the reference tree's names (``layers.attn.wq``,
-    ``lm_head`` ...), stacked by layer.  `tree()` returns the nested dict
-    of those parameters; `forward`, `loss`, `prefill` and `decode` are
-    the functional `forward` / `loss_fn` / `prefill` / `decode_step` on
-    it."""
+    """The dense or MoE LM as an ``nn.Module``: each leaf of the parameter
+    tree an ``nn.Parameter`` under the reference tree's names
+    (``layers.attn.wq``, ``lm_head`` ...), stacked by layer.  `tree()`
+    returns the nested dict of those parameters; `forward`, `loss`,
+    `prefill` and `decode` are the functional `forward` / `loss_fn` /
+    `prefill` / `decode_step` on it."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__(params)

@@ -20,6 +20,9 @@ the jitted reference likewise (divisions by constants become reciprocal
 multiplies; ``0.1 + 0.9 * (0.5 * (1 + cos))`` becomes
 ``fma(1 + cos, 0.45, 0.1)``).
 SGD-M, Muon and Adafactor keep the reference's eager order.
+``apply_updates(donate=True)`` writes each leaf's new values into the
+given params and state as soon as they are computed, so that an update
+never holds a second copy of them (a model that fills the card).
 """
 from __future__ import annotations
 
@@ -157,13 +160,14 @@ def _adamw_leaf(p, g, m, v, c1, c2, lr):
 
 def _newton_schulz(G, iters: int = 5):
     """Batched NS5 orthogonalization (Muon).  G: (..., m, n), bf16
-    products."""
+    products; G is not modified.  The float32 copy that normalizes G
+    lives only until its bf16 cast (a stacked expert leaf's is GBs)."""
     a, b, c = 3.4445, -4.7750, 2.0315
     m, n = G.shape[-2], G.shape[-1]
     transpose = m > n
     X = G.transpose(-1, -2) if transpose else G
-    X = X / (torch.linalg.vector_norm(X, dim=(-2, -1), keepdim=True) + 1e-7)
-    X = X.to(torch.bfloat16)
+    X = (X / (torch.linalg.vector_norm(X, dim=(-2, -1), keepdim=True)
+              + 1e-7)).to(torch.bfloat16)
     for _ in range(iters):
         A = X @ X.transpose(-1, -2)
         B = b * A + c * (A @ A)
@@ -176,10 +180,35 @@ def _rms(x):
     return torch.sqrt(torch.mean(torch.square(x)) + 1e-12)
 
 
+def _leafwise(upd, targets: dict, donate: bool) -> dict:
+    """{k: upd(k)} for every key of `targets`, each result a tuple of
+    tensors (or of dicts of tensors) shaped as targets[k].  With `donate`
+    each result is copied into targets[k] as soon as it is computed and
+    targets[k] is kept in its place: the old values die leaf by leaf, so
+    the update holds one leaf's new values at a time, not a second copy of
+    the params and the optimizer state."""
+    out = {}
+    for k, dst in targets.items():
+        res = upd(k)
+        if donate:
+            for d, r in zip(dst, res):
+                for dd, rr in (zip((d[n] for n in sorted(d)),
+                                   (r[n] for n in sorted(r)))
+                               if isinstance(d, dict) else ((d, r),)):
+                    dd.copy_(rr)
+            res = dst
+        out[k] = res
+    return out
+
+
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg, lr):
+def apply_updates(params, grads, state, cfg, lr, donate: bool = False):
     """Returns (new_params, new_state).  lr: a float32 value (the
-    schedule applied upstream, `lr_schedule`)."""
+    schedule applied upstream, `lr_schedule`).  `donate`: the new values
+    are written into the tensors of `params` and `state` (the same
+    arithmetic, the same bits), which are returned; the reference's
+    ``jax.jit(..., donate_argnums=(0,))`` (its ``launch/train.py``) lets
+    XLA do the same."""
     opt = cfg.optimizer
     step = state["step"] + 1
     sdt = _sdt(cfg)
@@ -193,23 +222,31 @@ def apply_updates(params, grads, state, cfg, lr):
         c2 = float(one - np.float32(_powf(B2, n)))
         flat_m = flatten_with_paths(state["m"])
         flat_v = flatten_with_paths(state["v"])
-        out = {k: _adamw_leaf(flat_p[k], flat_g[k], flat_m[k], flat_v[k],
-                              c1, c2, lr) for k in flat_p}
+
+        def upd(k):
+            p2, m2, v2 = _adamw_leaf(flat_p[k], flat_g[k], flat_m[k],
+                                     flat_v[k], c1, c2, lr)
+            return p2, m2.to(sdt), v2.to(sdt)
+
+        out = _leafwise(upd, {k: (flat_p[k], flat_m[k], flat_v[k])
+                              for k in flat_p}, donate)
         return (unflatten_like(params, {k: o[0] for k, o in out.items()}),
-                {"m": unflatten_like(params, {k: o[1].to(sdt)
+                {"m": unflatten_like(params, {k: o[1]
                                               for k, o in out.items()}),
-                 "v": unflatten_like(params, {k: o[2].to(sdt)
+                 "v": unflatten_like(params, {k: o[2]
                                               for k, o in out.items()}),
                  "step": step})
 
     if opt == "sgdm":
         flat_m = flatten_with_paths(state["m"])
 
-        def upd(p, g, m):
+        def upd(k):
+            p, g, m = flat_p[k], flat_g[k], flat_m[k]
             m2 = 0.9 * m.to(F32) + g.to(F32)
             return (p.to(F32) - lr * m2).to(p.dtype), m2.to(sdt)
 
-        out = {k: upd(flat_p[k], flat_g[k], flat_m[k]) for k in flat_p}
+        out = _leafwise(upd, {k: (flat_p[k], flat_m[k]) for k in flat_p},
+                        donate)
         return (unflatten_like(params, {k: o[0] for k, o in out.items()}),
                 {"m": unflatten_like(params, {k: o[1]
                                               for k, o in out.items()}),
@@ -218,18 +255,22 @@ def apply_updates(params, grads, state, cfg, lr):
     if opt == "muon":
         flat_m = flatten_with_paths(state["m"])
 
-        def upd(path, p, g, m):
-            m2 = 0.95 * m.to(F32) + g.to(F32)
-            if p.ndim >= 2 and path.startswith("layers/"):
-                o = _newton_schulz(m2)
+        def upd(k):
+            # the reference's arithmetic, one rounding per operation, on
+            # fresh float32 copies updated in place (a stacked expert
+            # leaf's float32 temporaries are GBs each)
+            p, g, m = flat_p[k], flat_g[k], flat_m[k]
+            m2 = m.to(F32, copy=True).mul_(0.95).add_(g)
+            if p.ndim >= 2 and k.startswith("layers/"):
                 scale = math.sqrt(max(1.0, p.shape[-2] / p.shape[-1]))
-                u = o * scale * 0.2
+                u = _newton_schulz(m2).mul_(scale).mul_(0.2)
             else:
                 u = m2 / (_rms(m2) + 1e-8)
-            newp = (p.to(F32) * (1 - lr * WD) - lr * u).to(p.dtype)
-            return newp, m2.to(sdt)
+            newp = p.to(F32, copy=True).mul_(1 - lr * WD).sub_(u.mul_(lr))
+            return newp.to(p.dtype), m2.to(sdt)
 
-        out = {k: upd(k, flat_p[k], flat_g[k], flat_m[k]) for k in flat_p}
+        out = _leafwise(upd, {k: (flat_p[k], flat_m[k]) for k in flat_p},
+                        donate)
         return (unflatten_like(params, {k: o[0] for k, o in out.items()}),
                 {"m": unflatten_like(params, {k: o[1]
                                               for k, o in out.items()}),
@@ -237,8 +278,11 @@ def apply_updates(params, grads, state, cfg, lr):
 
     if opt == "adafactor":
         eps = 1e-30
+        flat_f = flatten_with_paths(
+            state["f"], stop=lambda d: set(d) <= {"v", "vr", "vc"})
 
-        def upd(p, g, f):
+        def upd(k):
+            p, g, f = flat_p[k], flat_g[k], flat_f[k]
             gf = g.to(F32)
             g2 = gf * gf + eps
             if p.ndim >= 2:
@@ -256,9 +300,8 @@ def apply_updates(params, grads, state, cfg, lr):
             newp = (p.to(F32) * (1 - lr * WD) - lr * u).to(p.dtype)
             return newp, f2
 
-        flat_f = flatten_with_paths(
-            state["f"], stop=lambda d: set(d) <= {"v", "vr", "vc"})
-        out = {k: upd(flat_p[k], flat_g[k], flat_f[k]) for k in flat_p}
+        out = _leafwise(upd, {k: (flat_p[k], flat_f[k]) for k in flat_p},
+                        donate)
         return (unflatten_like(params, {k: o[0] for k, o in out.items()}),
                 {"f": unflatten_like(params, {k: o[1]
                                               for k, o in out.items()},

@@ -13,7 +13,13 @@ the Uno step, which does what the reference's Uno path does on its
     tensor it launches K3, K4 and K5 or raises), then the optimizer.
 
 The loss is ``lvals.mean()`` over the pods.  ``backend="plain"`` runs the
-sync's plain versions (a reference run on the card).  The serving steps
+sync's plain versions (a reference run on the card).  ``donate=True``
+writes each step's new params and optimizer state into the given
+state's tensors (``optim.apply_updates(donate=True)``; the reference's
+train CLI jits its step with ``donate_argnums=(0,)``): the step then
+holds one copy of them, which a model whose params, gradients and
+optimizer state fill most of the card needs; the state passed in is
+consumed.  The serving steps
 `make_prefill_step` / `make_decode_step` wrap ``models.prefill`` /
 ``models.decode_step`` (run them with gradients off).
 """
@@ -51,8 +57,10 @@ class TrainStep:
     "grad_norm" (of the synced gradients)."""
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, n_pods: int = 1,
-                 device: DeviceLike = None, backend: str = "auto"):
+                 device: DeviceLike = None, backend: str = "auto",
+                 donate: bool = False):
         self.cfg, self.run, self.n_pods = cfg, run, n_pods
+        self.donate = donate
         self.device = resolve_device(device)
         self.uno_sync = (make_uno_grad_sync(cfg, run, n_pods, self.device,
                                             backend)
@@ -88,7 +96,8 @@ class TrainStep:
         lr = optim.lr_schedule(step_idx, self.run.learning_rate,
                                self.run.warmup_steps)
         params, opt = optim.apply_updates(state["params"], grads,
-                                          state["opt"], self.cfg, lr)
+                                          state["opt"], self.cfg, lr,
+                                          donate=self.donate)
         return {"params": params, "opt": opt}
 
     def sync_and_update(self, state, stacked, step_idx: int):
@@ -109,11 +118,11 @@ class TrainStep:
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, n_pods: int = 1,
-                    device: DeviceLike = None,
-                    backend: str = "auto") -> TrainStep:
+                    device: DeviceLike = None, backend: str = "auto",
+                    donate: bool = False) -> TrainStep:
     """The baseline step (n_pods = 1) or the Uno step over n_pods pods on
     the one card.  `device`: None means cuda (raises with no card)."""
-    return TrainStep(cfg, run, n_pods, device, backend)
+    return TrainStep(cfg, run, n_pods, device, backend, donate)
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):

@@ -285,6 +285,27 @@ def test_init_params_shapes_dtypes_and_seed():
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-130m",
                                   "jamba-1.5-large-398b"])
 def test_unported_families_raise(arch):
-    cfg = TB.reduced(TR.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9b"):
-        TM.param_defs(cfg)
+    """The MoE, SSM and hybrid families (ROADMAP item 9b) build through
+    the dispatch: their ParamDef tree has the reference's leaf paths,
+    shapes and dtypes (float32 router / dt_bias / A_log / D in a bf16
+    tree), `init_params` draws it, and the float32 loss on a seeded tree
+    equals the jitted reference's within 1e-4 (their gradients:
+    tests/test_torch_{moe,ssm,hybrid}.py)."""
+    import family_parity as FP
+    rcfg, tcfg = _cfgs(arch, f32=False)
+    want = jax.tree_util.tree_flatten_with_path(RM.abstract_params(rcfg))[0]
+    defs = TP.flatten(TM.param_defs(tcfg))[0]
+    assert len(defs) == len(want)
+    for d, (_, w) in zip(defs, want):
+        assert d.shape == w.shape
+        assert str(d.dtype).removeprefix("torch.") == str(w.dtype)
+    tree = TM.init_params(tcfg, torch.Generator().manual_seed(0))
+    assert [l.dtype for l in TP.flatten(tree)[0]] == [d.dtype for d in defs]
+    rcfg, tcfg = _cfgs(arch)
+    params = FP.params(rcfg, tcfg, seed=18)
+    batch = _batch(rcfg, seed=19)
+    with torch.no_grad():
+        loss = TM.loss_fn(TP.tree_from_arrays(params, "cpu"),
+                          {k: _to_torch(v) for k, v in batch.items()}, tcfg)
+    want = jax.jit(lambda p, b: RM.loss_fn(p, b, rcfg))(params, batch)
+    _close(loss, want, GRAD_RTOL, "loss")

@@ -269,11 +269,23 @@ def test_abstract_params_cache_and_input_specs_match_reference(case):
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-130m"])
 def test_unported_families_raise_in_serving(arch):
-    cfg = TB.reduced(TR.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9b"):
-        TM.cache_defs(cfg, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9b"):
-        TM.prefill({}, torch.zeros((1, 8), dtype=torch.int32), cfg, 8)
+    """The MoE and SSM families (ROADMAP item 9b) serve through the
+    dispatch: the cache has the reference's leaves, shapes and dtypes
+    (the SSM's O(1) in max_len: conv tails and float32 states), and the
+    float32 prefill logits equal the jitted reference's within 1e-5
+    (decoding: tests/test_torch_moe.py, tests/test_torch_ssm.py)."""
+    import family_parity as FP
+    rcfg, tcfg = FP.cfgs(arch, f32=False)
+    _meta_like(TM.abstract_cache(tcfg, 1, 8), RM.abstract_cache(rcfg, 1, 8))
+    rcfg, tcfg = FP.cfgs(arch)
+    params = FP.params(rcfg, tcfg, seed=32)
+    x = _inputs(rcfg, np.random.default_rng(33), 2, 8)
+    logits, cache, _ = _ref_steps(rcfg, 8)[0](params, x)
+    with torch.inference_mode():
+        tl, tc, pos = TM.prefill(TP.tree_from_arrays(params, "cpu"), _t(x),
+                                 tcfg, 8)
+    assert pos == 8 and sorted(tc) == sorted(cache)
+    _close(tl, logits, RTOL, f"{arch} prefill logits")
 
 
 # ------------------------------------------------------------------ engine

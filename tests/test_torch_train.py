@@ -130,6 +130,40 @@ def test_other_optimizers_match_jitted_reference(opt, p_rtol, s_rtol):
             assert _rel(a, b) <= s_rtol, opt
 
 
+@pytest.mark.parametrize("opt", ["adamw", "sgdm", "muon", "adafactor"])
+def test_donated_update_is_the_same_update(opt):
+    """`apply_updates(donate=True)` writes bitwise the values of the
+    functional update into the given params and state, and returns those
+    same tensors; a donated train step matches an undonated one."""
+    _, tcfg = _cfgs(optimizer=opt)
+    rng = np.random.default_rng(5)
+    rcfg = RB.reduced(RR.get_config("smollm-135m"))
+    tp = TP.tree_from_arrays(_tree(rcfg, rng, 0.05, jnp.bfloat16), "cpu")
+    ts = TO.init_opt_state(tp, tcfg)
+    for i in range(2):
+        g = TP.tree_from_arrays(_tree(rcfg, rng, 1e-3, jnp.bfloat16), "cpu")
+        want_p, want_s = TO.apply_updates(tp, g, ts, tcfg, 1e-3)
+        keep = TP.flatten({"p": tp, "s": ts})[0]
+        got_p, got_s = TO.apply_updates(tp, g, ts, tcfg, 1e-3, donate=True)
+        got = TP.flatten({"p": got_p, "s": got_s})[0]
+        want = TP.flatten({"p": want_p, "s": want_s})[0]
+        for a, b, k in zip(got, want, keep):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+            assert a is k or a.ndim == 0         # the step counter is new
+        tp, ts = got_p, got_s
+    step = TT.make_train_step(tcfg, TB.RunConfig(), device="cpu")
+    donated = TT.make_train_step(tcfg, TB.RunConfig(), device="cpu",
+                                 donate=True)
+    s0 = TT.make_train_state(tcfg, seed=0, device="cpu")
+    s1 = TT.make_train_state(tcfg, seed=0, device="cpu")
+    batch = synth_batch(tcfg, 0, 4, 32)
+    a, _ = step(s0, batch, 1)
+    b, _ = donated(s1, batch, 1)
+    assert b["params"]["lm_head"] is s1["params"]["lm_head"]
+    for x, y in zip(TP.flatten(a)[0], TP.flatten(b)[0]):
+        assert torch.equal(x, y)
+
+
 def _round_f32(x: Fraction) -> np.float32:
     """The float32 nearest the rational x, ties to even."""
     f = np.float32(float(x))

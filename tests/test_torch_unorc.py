@@ -316,7 +316,7 @@ def _paths(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", RR.ARCH_IDS)
 def test_param_defs_match_reference(arch):
     """Shapes, dtypes and leaf order (JAX's: dict keys sorted at every
     level) equal `repro.models.abstract_params`; nothing is allocated."""
@@ -334,13 +334,26 @@ def test_param_defs_match_reference(arch):
                                        for _, w in want)
     if arch == "smollm-135m":
         assert TP.param_count(defs) == 134_515_008
+    if arch == "mamba2-130m":
+        assert TP.param_count(defs) == 128_835_456
 
 
 def test_param_defs_other_families_raise():
+    """Beyond the dense family every tree builds (ROADMAP item 9b); its
+    float32 leaves, which the sync's flat vector carries beside the bf16
+    ones, are the reference's: the MoE router, the SSM's dt_bias, A_log
+    and D."""
     for arch in RR.ARCH_IDS:
-        if arch not in DENSE:
-            with pytest.raises(NotImplementedError):
-                TP.param_defs(TR.get_config(arch))
+        if arch in DENSE:
+            continue
+        want = [jax.tree_util.keystr(p) for p, w in
+                jax.tree_util.tree_flatten_with_path(RM.abstract_params(
+                    RR.get_config(arch)))[0] if w.dtype == jnp.float32]
+        got = [p for p, d in _paths(TP.param_defs(TR.get_config(arch)))
+               if d.dtype == torch.float32]
+        assert got == want and got, arch
+        assert {p.split("['")[-1] for p in got} <= {
+            "router']", "dt_bias']", "A_log']", "D']"}, arch
 
 
 def test_tree_from_arrays_round_trips_bf16():
