@@ -213,8 +213,26 @@ Phases, each printing one JSON line:
                qwen3-moe and jamba in float32 on the card against the
                CPU (prefill and decode logits within 1e-4 normalized,
                greedy completions token for token).
+ 17. dryrun — (run after phase 16) the cost and roofline tools
+               (`launch.dryrun`, `.op_costs`, `.roofline`) checked on the
+               card: smollm-135m's baseline train step (phase 13's 8 x
+               1,024 tokens, AdamW, `dryrun:train:smollm-135m:base`), its
+               Uno step at p = 2 (`…:p2:cuda`, K3-K5 as the
+               `torch.ops.repro_torch` custom ops) and one decode step of
+               phase 15's long mix, each traced on meta and run on the
+               card under the op counter: flops, bytes, the op multiset
+               and the K3-K5 launches equal (the counter's launches also
+               equal to the wrappers' LAUNCHES), the counted peak within
+               10 % of `torch.cuda.max_memory_allocated` (less what was
+               allocated before other than the arguments), ms/step
+               against the roofline bound, its fraction and dominant
+               term; then the records of the dry run of every SHAPES
+               cell of smollm-135m, mamba2-130m and qwen3-moe-235b-a22b
+               at full size and of their Uno train cells (on meta, in 4
+               child processes that see no card, after every timing of
+               the run; seconds per cell) and the report's table.
 
-Every path that phases 4 to 6, 8 to 12 and 13 to 16 drive runs with the launch
+Every path that phases 4 to 6, 8 to 12 and 13 to 17 drive runs with the launch
 counts zeroed just before it and read just after it; each kernel record
 carries the count of the path it belongs to (`path`), and a path's
 kernel that was never launched in it fails the run.  The comparisons of
@@ -340,6 +358,17 @@ FAM_MOE_LAYERS = 2
 FAM_WARM, FAM_STEPS = 3, 10
 FAM_MOE_STEPS = 5
 FAM_REDUCED = ("mamba2-130m", "qwen3-moe-235b-a22b", "jamba-1.5-large-398b")
+
+# phase 17: the cost and roofline tools (launch.dryrun) on the card
+DRY_ARCHS = ("smollm-135m", "mamba2-130m", "qwen3-moe-235b-a22b")
+DRY_PEAK_RTOL = 0.10        # counted peak against max_memory_allocated
+DRY_TIMED = 3               # timed steps after the counted one
+DRY_PROCS = 4               # child processes of the dry run (8 cores)
+DRY_WAIT_S = 600            # the dry run's children, at most
+DRY_DIR = ROOT / "chiprun_out" / "dryrun_torch"
+DRY_PATHS = {"base": f"dryrun:train:{UNO_ARCH}:base",
+             "p2": f"dryrun:train:{UNO_ARCH}:p2:cuda",
+             "decode": f"dryrun:serve:{SERVE_ARCH}:long:decode"}
 
 MAIN_PATH = "fat_tree:steady_state:pt_cuda"
 FLAT_PATH = "fat_tree:agree:cuda"
@@ -2215,10 +2244,9 @@ def unorc_sync_phase(dev, card, cfg, n_syncs: int = UNO_SYNCS):
         del stacked, out, out_plain, leaves
         torch.cuda.empty_cache()
     raw = n_params * 4                  # benchmarks/uno_collectives_bench.py
-    q = n_params
-    ec = q * (1 + run.uno_ec_parity / run.uno_ec_data) + 4 * n_params // 256
+    ec = U.wire_bytes(n_params, run, 2)  # one pod's frames, padded chunks
     emit("unorc_sync", **card, runs=out_runs,
-         dci_bytes_raw=raw, dci_bytes_uno=int(ec),
+         dci_bytes_raw=raw, dci_bytes_uno=ec,
          dci_compression_x=raw / ec)
 
 
@@ -2395,7 +2423,9 @@ def progress(what: str, rec: dict):
             "max_loss_diff", "param_diff_after_step1", "held_loss",
             "losses", "wall_ms",
             "device_kernels", "device_busy_ms_per_call",
-            "busy_ms_by_kind")
+            "busy_ms_by_kind", "bound_ms", "roofline_fraction",
+            "counted_peak_bytes", "card_counted_peak_bytes",
+            "allocated_peak_bytes", "peak_gap")
     print(json.dumps({"progress": what,
                       **{k: rec[k] for k in keys if k in rec}}), flush=True)
 
@@ -2960,6 +2990,277 @@ def families_phase(dev, card):
     return records
 
 
+# ------------------------------------------------------------- phase 17
+
+def dry_cell_list() -> list:
+    """(arch, shape, uno) of every SHAPES cell of DRY_ARCHS and of their
+    train cells' Uno step, the slowest first (on the CPU of an H100
+    machine: ~50 s for qwen3-moe's Uno step down to 0.4 s)."""
+    from repro_torch.configs.base import SHAPES
+    cells = [(a, s, uno) for a in DRY_ARCHS for s, spec in SHAPES.items()
+             for uno in ((False, True) if spec.kind == "train" else (False,))]
+    rank = {("train", True): 0, ("prefill", False): 1, ("train", False): 2}
+    return sorted(cells, key=lambda c: (rank.get((SHAPES[c[1]].kind, c[2]),
+                                                 3), DRY_ARCHS.index(c[0])))
+
+
+def dry_cells(out_dir: str) -> None:
+    """`launch.dryrun.cost_cell` of each cell of `dry_cell_list()` that no
+    other child has claimed (an exclusive claim file per cell, the
+    slowest cells first), on meta: one record each in `out_dir`, with
+    the cell's wall seconds."""
+    from repro_torch.launch import dryrun
+    for arch, shape, uno in dry_cell_list():
+        claim = pathlib.Path(out_dir) / f"{arch}__{shape}__{uno}.claim"
+        try:
+            claim.open("x").close()
+        except FileExistsError:
+            continue
+        t0 = time.perf_counter()
+        rec = dryrun.cost_cell(arch, shape, uno=uno)
+        rec["wall_s"] = time.perf_counter() - t0
+        path = dryrun.write_result(rec, pathlib.Path(out_dir))
+        print(f"{path.name} {rec['wall_s']:.2f} s", flush=True)
+
+
+def run_dry_cells() -> float:
+    """`dry_cells` in DRY_PROCS child processes that see no card, sharing
+    the cells; returns the wall seconds.  Every child is waited for, or
+    killed."""
+    import os
+    DRY_DIR.mkdir(parents=True, exist_ok=True)
+    for old in [*DRY_DIR.glob("*.json"), *DRY_DIR.glob("*.claim")]:
+        old.unlink()
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i in range(DRY_PROCS):
+            log = open(DRY_DIR.parent / f"dryrun_cells_{i}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; chip_smoke."
+                 f"dry_cells({str(DRY_DIR)!r})"],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT),
+                log))
+        for i, (proc, _) in enumerate(procs):
+            rc = proc.wait(timeout=max(1.0, DRY_WAIT_S
+                                       - (time.perf_counter() - t0)))
+            check(rc == 0, f"dry run child {i} exited {rc} "
+                  f"(chiprun_out/dryrun_cells_{i}.log)")
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return time.perf_counter() - t0
+
+
+def _counted_on_card(fn, *args):
+    """(out, costs, measured peak): `op_costs.analyze` of fn(*args) on the
+    card, and the peak the allocator saw in it, counted as the counter
+    counts its peak: max_memory_allocated after a reset, less what was
+    allocated before the call other than the call's arguments."""
+    import gc
+    import torch
+    from repro_torch.launch import op_costs
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, costs = op_costs.analyze(fn, *args)
+    torch.cuda.synchronize()
+    other = before - costs["argument_bytes"]
+    return out, costs, torch.cuda.max_memory_allocated() - other
+
+
+def _dry_compare(what, meta, cuda, measured_peak, secs) -> dict:
+    """The meta trace against the card's: flops, bytes, the op multiset
+    and the K3-K5 launches equal; the counted peak within DRY_PEAK_RTOL
+    of the allocator's; the measured step against the roofline bound."""
+    from collections import Counter
+    from repro_torch.launch.roofline import roofline_terms
+    diff = Counter(cuda["ops"])
+    diff.subtract(meta["ops"])
+    diff = {k: v for k, v in diff.items() if v}
+    check(not diff, f"{what}: the card ran other ops than the meta trace "
+          f"(card - meta) {diff}")
+    for key in ("flops", "flops_by_dtype", "hbm_bytes", "n_ops",
+                "kernel_launches", "argument_bytes"):
+        check(meta[key] == cuda[key], f"{what}: {key} {meta[key]} on meta, "
+              f"{cuda[key]} on the card")
+    gap = (meta["peak_bytes"] - measured_peak) / measured_peak
+    terms = roofline_terms(meta["flops"], meta["hbm_bytes"], 0.0, 1,
+                           flops_by_dtype=meta["flops_by_dtype"])
+    bound_s = max(terms["t_compute_s"], terms["t_memory_s"])
+    ms = statistics.median(secs) * 1e3
+    rec = dict(
+        flops=meta["flops"], flops_by_dtype=meta["flops_by_dtype"],
+        hbm_bytes=meta["hbm_bytes"], n_ops=meta["n_ops"],
+        kernel_launches=meta["kernel_launches"],
+        argument_bytes=meta["argument_bytes"],
+        counted_peak_bytes=meta["peak_bytes"],
+        card_counted_peak_bytes=cuda["peak_bytes"],
+        allocated_peak_bytes=measured_peak, peak_gap=gap,
+        roofline=terms, bound_ms=bound_s * 1e3, ms_per_step=ms,
+        ms_per_step_all=[t * 1e3 for t in secs],
+        roofline_fraction=bound_s * 1e3 / ms,
+        top_ops_by_bytes=meta["top_ops_by_bytes"][:5],
+        top_ops_by_flops=meta["top_ops_by_flops"][:3])
+    progress(what, rec)
+    check(abs(gap) <= DRY_PEAK_RTOL, f"{what}: counted peak "
+          f"{meta['peak_bytes']} against {measured_peak} allocated ({gap:+.3f})")
+    return rec
+
+
+def _dry_train(dev, cfg, n_pods: int, path: str) -> dict:
+    """smollm's train step at TRAIN_BATCH x TRAIN_SEQ (AdamW, full width)
+    traced on meta and run on the card, each under the op counter, then
+    timed; n_pods = 2 is the Uno step with K3-K5."""
+    import torch
+    from repro_torch import models, optim, train
+    from repro_torch.configs.base import RunConfig, ShapeSpec
+    from repro_torch.launch import op_costs
+    run = RunConfig(**TRAIN_RUN)
+    params = models.abstract_params(cfg)
+    mstate = {"params": params, "opt": optim.init_opt_state(params, cfg)}
+    mbatch = models.train_input_specs(
+        cfg, ShapeSpec("card", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    t0 = time.perf_counter()
+    _, meta = op_costs.analyze(
+        train.make_train_step(cfg, run, n_pods=n_pods, device="meta"),
+        mstate, mbatch, 1)
+    trace_s = time.perf_counter() - t0
+    # the batches in the specs' dtypes (synth_batch's token ids are int64,
+    # the reference's input specs int32: the model casts either way)
+    batches = [{k: v.to(mbatch[k].dtype) for k, v in b.items()}
+               for b in _train_batches(cfg, dev, 2 + DRY_TIMED)]
+    step = train.make_train_step(cfg, run, n_pods=n_pods, device=dev)
+    state, _ = step(train.make_train_state(cfg, seed=0, device=dev),
+                    batches[0], 0)
+    (state2, _), cuda, peak = drive(
+        path, lambda: _counted_on_card(step, state, batches[1], 1),
+        plain=n_pods == 1)
+    check(cuda["kernel_launches"] == PATHS[path],
+          f"{path}: the counter saw {cuda['kernel_launches']}, the wrappers "
+          f"counted {PATHS[path]}")
+    del state
+    secs = []
+    for i, batch in enumerate(batches[2:]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state2, m = step(state2, batch, 2 + i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    check(math.isfinite(float(m["loss"])), f"{path}: loss not finite")
+    rec = _dry_compare(path, meta, cuda, peak, secs)
+    rec.update(n_pods=n_pods, meta_trace_s=trace_s,
+               launches=dict(PATHS[path]))
+    del state2, batches, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _dry_decode(dev, cfg, path: str) -> dict:
+    """One decode step of SERVE_MIXES["long"] (batch 8 against a cache of
+    1,024 + 128, after the prompt's prefill) traced on meta and run on
+    the card, each under the op counter, then timed."""
+    import torch
+    from repro_torch import models, train
+    from repro_torch.launch import op_costs
+    mix = SERVE_MIXES["long"]
+    b, pos, max_len = mix["batch"], mix["prompt"], mix["prompt"] + mix["gen"]
+    decode = train.make_decode_step(cfg)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        _, meta = op_costs.analyze(
+            decode, models.abstract_params(cfg),
+            models.abstract_cache(cfg, b, max_len),
+            torch.empty((b, 1), dtype=torch.int32, device="meta"), pos)
+        trace_s = time.perf_counter() - t0
+        params = models.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0))
+        g = torch.Generator(device=dev).manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (b, pos), generator=g,
+                               device=dev, dtype=torch.int32)
+        logits, cache, p0 = train.make_prefill_step(cfg, max_len)(params,
+                                                                  prompt)
+        check(p0 == pos, f"prefill returned pos {p0}")
+        tok = logits.argmax(-1).to(torch.int32)[:, None]
+        decode(params, cache, tok, pos)
+        (logits, _), cuda, peak = drive(
+            path, lambda: _counted_on_card(decode, params, cache, tok, pos),
+            plain=True)
+        check(bool(torch.isfinite(logits).all()), f"{path}: logits")
+        secs = []
+        for _ in range(DRY_TIMED + 7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(params, cache, tok, pos)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    rec = _dry_compare(path, meta, cuda, peak, secs)
+    rec.update(batch=b, pos=pos, max_len=max_len, meta_trace_s=trace_s)
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dryrun_phase(dev, card, uno_records) -> list:
+    """The dry run checked on the card: smollm's baseline and Uno p = 2
+    train steps and the long mix's decode step traced on meta and run on
+    the card under the op counter (equal flops, bytes, ops and K3-K5
+    launches; the counted peak within DRY_PEAK_RTOL of the allocator's;
+    ms/step against the roofline bound), then the dry run of DRY_ARCHS'
+    cells in child processes (`run_dry_cells`) and the report's table.
+    Returns K3-K5's records for the Uno step's path (the unorc_kernels
+    phase's measurements at the same shapes)."""
+    import torch
+    from repro_torch.configs.base import SHAPES, RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import roofline_report
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(UNO_ARCH)
+    out = RESULTS["dryrun"] = dict(arch=UNO_ARCH, batch=TRAIN_BATCH,
+                                   seq=TRAIN_SEQ, steps={})
+    for key, n_pods in (("base", 1), ("p2", 2)):
+        rec = out["steps"][key] = _dry_train(dev, cfg, n_pods,
+                                             DRY_PATHS[key])
+    rec = out["steps"]["decode"] = _dry_decode(dev, get_config(SERVE_ARCH),
+                                               DRY_PATHS["decode"])
+    out["cells_wall_s"] = run_dry_cells()
+    cells = {}
+    for arch in DRY_ARCHS:
+        for shape, spec in SHAPES.items():
+            for tag in ("card", "card-uno") if spec.kind == "train" \
+                    else ("card",):
+                f = DRY_DIR / f"{arch}__{shape}__{tag}.json"
+                check(f.exists(), f"dry run: no record {f.name}")
+                r = json.loads(f.read_text())
+                cells[f.stem] = dict(
+                    skipped=r["skipped"], wall_s=r["wall_s"],
+                    **({} if r["skipped"] else dict(
+                        trace_s=r["trace_s"], peak_bytes=r["peak_bytes"],
+                        fits_one_card=r["fits_one_card"],
+                        roofline=r["roofline"],
+                        dci_bytes=r["costs"]["dci_bytes"],
+                        kernel_launches=r["costs"]["kernel_launches"])))
+                if tag == "card-uno":
+                    check(r["costs"]["kernel_launches"]
+                          == sync_launches(RunConfig(), 2),
+                          f"{f.name}: {r['costs']['kernel_launches']}")
+    out["cells"] = cells
+    out["report"] = roofline_report.report(DRY_DIR).splitlines()
+    for line in out["report"]:
+        print(line, flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("dryrun", **card, **out)
+    return [dict(r, name=f"{r['name']}@dryrun", path=DRY_PATHS["p2"])
+            for r in uno_records if r["path"] == uno_path(2)]
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -3033,6 +3334,7 @@ def main() -> int:
     records += train_phase(dev, card, uno_cfg, uno_records)
     serve_phase(dev, card)
     records += families_phase(dev, card)
+    records += dryrun_phase(dev, card, uno_records)
     for rec in records:
         rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "

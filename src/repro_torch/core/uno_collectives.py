@@ -158,6 +158,25 @@ def _pod_ring_psum(v, run: RunConfig, n_pods: int, backend: str = "auto"):
     return torch.cat(out_chunks, dim=1)[:, :n]
 
 
+def wire_bytes(n_params: int, run: RunConfig, n_pods: int) -> int:
+    """Bytes one pod sends across the DCI per sync of an n_params
+    gradient: every protected send's frame as `_protect` builds it (the
+    int8 rows, the RS parity rows and the f32 scales of a padded chunk at
+    p = 2, of a padded ring part at p > 2), over the sends of
+    `_pod_ring_psum` (one per chunk at p = 2, 2 (p - 1) on the ring)."""
+    n_chunks = max(1, run.uno_chunks)
+    unit = n_chunks * run.uno_ec_data * ops.QUANT_BLOCK
+    part = -(-n_params // unit) * unit // n_chunks
+    sends = 1
+    if n_pods > 2:
+        sends = 2 * (n_pods - 1)
+        part = -(-part // n_pods)
+        part += (-part) % ops.QUANT_BLOCK
+    frame = (part + part // run.uno_ec_data * run.uno_ec_parity
+             + 4 * (part // ops.QUANT_BLOCK))
+    return n_chunks * sends * frame
+
+
 # ----------------------------------------------------------------- flattening
 
 def _flatten(stacked, n_pods: int):

@@ -61,14 +61,17 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _on_cuda(*ts: torch.Tensor) -> bool:
+def _on_cuda(*ts: torch.Tensor, meta: bool = False) -> bool:
+    """True for operands on one CUDA device, False on the CPU; raises on
+    several devices or another device.  ``meta=True`` (the UnoRC custom
+    ops, whose fakes take meta tensors) counts meta as the card."""
     devs = {t.device for t in ts}
     if len(devs) != 1:
         raise ValueError(f"operands on several devices: {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type == "cpu":
         return False
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not (meta and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev}")
     return True
 

@@ -26,11 +26,15 @@ NEG_INF = -1e30
 def checkpointed(fn):
     """`fn` under a non-reentrant ``torch.utils.checkpoint`` when
     gradients are on (``jax.checkpoint``: the backward pass recomputes
-    its intermediates from its inputs); called directly otherwise."""
+    its intermediates from its inputs); called directly otherwise.  The
+    checkpointed bodies draw no random numbers, so no RNG state is
+    stashed and restored around the recompute (`preserve_rng_state`:
+    the card's trace then holds the ops a meta trace holds)."""
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
     return wrapped
 
@@ -183,6 +187,6 @@ def chunked_softmax_xent(h, lm_head, labels, *, chunk: int = 1024):
     for i in range(S // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         t, c = checkpoint(_xent_chunk, h[:, sl], labels[:, sl], lm_head,
-                          use_reentrant=False)
+                          use_reentrant=False, preserve_rng_state=False)
         tot, cnt = tot + t, cnt + c
     return tot / torch.clamp(cnt, min=1.0)

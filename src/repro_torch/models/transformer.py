@@ -188,7 +188,8 @@ def _remat(fn, cfg):
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=ctx,
+                          preserve_rng_state=False)
 
     return wrapped
 

@@ -68,8 +68,8 @@ def _cosf(a: float) -> float:
 def _sqrt32(x):
     """Correctly rounded float32 sqrt, as XLA computes it.  CUDA's is;
     torch's CPU kernel can be one ulp off, so the CPU rounds the float64
-    root."""
-    if x.device.type == "cuda":
+    root.  A meta tensor (the dry run) takes the card's branch."""
+    if x.device.type != "cpu":
         return torch.sqrt(x)
     return torch.sqrt(x.to(torch.float64)).to(F32)
 

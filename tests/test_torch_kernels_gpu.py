@@ -13,7 +13,9 @@ Every test is marked `gpu` and skips without a CUDA device.  K2 is held
 at unrolled hop counts and on the runtime loop, over a link table small
 enough for L1 and one that lives in L2; K3 at every M and K from 1 to
 16, on its 16-byte path and its byte path; K5 at block counts on either
-side of its per-warp span, both uses.  The CPU tests
+side of its per-warp span, both uses; K3-K5 as the custom ops
+``torch.ops.repro_torch.*`` at one p = 2 chunk, with their fakes.  The
+CPU tests
 (test_torch_gathers.py, test_torch_unorc.py, test_torch_gf.py) hold the
 plain versions, and K3's arithmetic, against the JAX reference.
 """
@@ -143,6 +145,58 @@ def test_gf_matmul_more_groups_than_the_grid_on_card(dev):
                                       dtype=np.uint8)).to(dev)
     got = _no_sync(lambda: unorc_cuda.gf_matmul(x, coeffs, use="decode"))
     assert torch.equal(got, TK.gf_matmul_ref(coeffs, x))
+
+
+P2_CHUNK = 16_816_128      # one p = 2 chunk of smollm-135m's gradient
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["quant_int8", "gf_matmul/encode",
+                                "gf_matmul/decode", "dequant_int8",
+                                "dequant_int8/acc"])
+def test_custom_ops_match_plain_versions_and_fakes_on_card(dev, op):
+    """K3-K5 called as ``torch.ops.repro_torch.*`` at one p = 2 chunk of
+    smollm-135m's gradient (2 pods x 16,816,128 f32, 8 RS rows): bitwise
+    the plain versions, one launch counted under the wrapper's key; the
+    op's fake on meta copies of the operands gives the kernel's output
+    shapes and dtypes."""
+    from repro_torch.kernels import gf
+    rng = np.random.default_rng(len(op))
+    x = torch.from_numpy(rng.normal(size=(2, P2_CHUNK)).astype(np.float32)
+                         * 1e-3).to(dev)
+    q, s = TK.quant_int8_ref(x)
+    rows = q.view(torch.uint8).reshape(2, 8, -1)
+    survivors = torch.cat([rows[:, 2:], TK.rs_encode_ref(rows, 2)], dim=1)
+    decode = gf.rs_decode_matrix(8, 2, (0, 1), (0, 1))
+    encode = gf.rs_generator_rows(8, 2)
+    flat = lambda c: [int(v) for r in c for v in r]  # noqa: E731
+    calls = {
+        "quant_int8": (torch.ops.repro_torch.quant_int8, (x,),
+                       lambda: TK.quant_int8_ref(x)),
+        "gf_matmul/encode": (torch.ops.repro_torch.gf_matmul,
+                             (rows, flat(encode), 2, "encode"),
+                             lambda: TK.gf_matmul_ref(encode, rows)),
+        "gf_matmul/decode": (torch.ops.repro_torch.gf_matmul,
+                             (survivors, flat(decode), 2, "decode"),
+                             lambda: TK.gf_matmul_ref(decode, survivors)),
+        "dequant_int8": (torch.ops.repro_torch.dequant_int8, (q, s, None),
+                         lambda: TK.dequant_int8_ref(q, s)),
+        "dequant_int8/acc": (torch.ops.repro_torch.dequant_int8, (q, s, x),
+                             lambda: TK.dequant_int8_ref(q, s, acc=x)),
+    }
+    fn, args, plain = calls[op]
+    start = unorc_cuda.LAUNCHES[op]
+    got = _no_sync(lambda: fn(*args))
+    assert unorc_cuda.LAUNCHES[op] == start + 1
+    want = plain()
+    got, want = ((got,), (want,)) if torch.is_tensor(got) else (got, want)
+    _equal(got, want, op)
+    meta = fn(*(a.to("meta") if torch.is_tensor(a) else a for a in args))
+    meta = (meta,) if torch.is_tensor(meta) else meta
+    for m, g in zip(meta, got):
+        assert m.device.type == "meta"
+        assert (m.shape, m.dtype) == (g.shape, g.dtype), op
+    assert unorc_cuda.LAUNCHES[op] == start + 1
 
 
 @pytest.fixture(scope="module")

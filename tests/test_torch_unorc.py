@@ -42,7 +42,7 @@ from repro_torch.core import uno_collectives as TU  # noqa: E402
 from repro_torch.kernels import gf as TG  # noqa: E402
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.kernels import ref as TK  # noqa: E402
-from repro_torch.kernels import unorc_cuda  # noqa: E402
+from repro_torch.kernels import fleet_cuda, unorc_cuda  # noqa: E402
 from repro_torch.models import params as TP  # noqa: E402
 
 DENSE = [a for a in RR.ARCH_IDS if RR.get_config(a).family == "dense"]
@@ -543,5 +543,9 @@ def test_unorc_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="devices"):
         unorc_cuda.dequant_int8(torch.zeros(256, dtype=torch.int8),
                                 torch.ones(1, device="meta"))
+    # meta tensors take the custom ops' fakes (the dry run); the fleet
+    # kernels' device rule still refuses them
+    q, s = unorc_cuda.quant_int8(torch.zeros(256, device="meta"))
+    assert q.device.type == "meta" and q.dtype == torch.int8
     with pytest.raises(ValueError, match="unsupported device"):
-        unorc_cuda.quant_int8(torch.zeros(256, device="meta"))
+        fleet_cuda._on_cuda(torch.zeros(256, device="meta"))
