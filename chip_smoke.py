@@ -232,7 +232,30 @@ Phases, each printing one JSON line:
                child processes that see no card, after every timing of
                the run; seconds per cell) and the report's table.
 
-Every path that phases 4 to 6, 8 to 12 and 13 to 17 drive runs with the launch
+ 18. mesh — (run after phase 17) the batch axes of the mesh:
+               smollm-135m at full width (phase 13's seeded weights and
+               8 x 1,024-token batch) with its 30 layers through the
+               stacked GPipe pipeline (`transformer.loss_fn` with
+               `pipeline.pipeline_layers`: the embedding outside, the layers on 8 microbatches of
+               1 x 1,024 tokens, then the norm, head and chunked loss) at
+               S = 2 and 5 stages, forward and backward, against the same
+               layers run one microbatch after another (S = 1): loss and
+               every gradient bitwise; the loss within 1e-4 of `loss_fn`
+               on the whole batch; ms/step (one warm-up, 1 timed),
+               bubble fraction, peak memory, a device profile of one
+               S = 5 pass (kernels, busy, idle); the bytes one stage boundary
+               carries per step each way (the bf16 activations the
+               forward hands across, and their gradients back) beside
+               `uno_collectives.wire_bytes` at p = 2 for the same model
+               (paths `mesh:smollm-135m:pipeline:S*`, no kernel); then
+               `launch.train` at full width for 3 steps under torchrun
+               with one rank (`--mesh 1x1x1`: a set-up and drive check
+               of the group, the DeviceMesh on cuda, the data shard, the
+               replication check and the step's all-reduces through NCCL
+               on the card, each the identity at one rank) and without a
+               group, the losses bitwise equal.
+
+Every path that phases 4 to 6, 8 to 12 and 13 to 18 drive runs with the launch
 counts zeroed just before it and read just after it; each kernel record
 carries the count of the path it belongs to (`path`), and a path's
 kernel that was never launched in it fails the run.  The comparisons of
@@ -369,6 +392,18 @@ DRY_DIR = ROOT / "chiprun_out" / "dryrun_torch"
 DRY_PATHS = {"base": f"dryrun:train:{UNO_ARCH}:base",
              "p2": f"dryrun:train:{UNO_ARCH}:p2:cuda",
              "decode": f"dryrun:serve:{SERVE_ARCH}:long:decode"}
+
+# phase 18: the batch axes of the mesh.  smollm-135m's 30 layers through
+# the stacked GPipe pipeline at S = 2 and 5 stages (phase 13's batch as 8
+# microbatches of 1 x 1,024 tokens), against the layers run one
+# microbatch after another (S = 1, bitwise) and loss_fn on the whole
+# batch; then launch.train over a 1-rank NCCL group against no group
+MESH_STAGES = (2, 5)
+MESH_MICRO = 8
+MESH_TIMED = 1              # timed pipeline steps after one warm-up
+MESH_LOSS_RTOL = 1e-4       # pipeline loss against loss_fn, whole batch
+MESH_NCCL_STEPS = 3
+MESH_NCCL_TIMEOUT_S = 300
 
 MAIN_PATH = "fat_tree:steady_state:pt_cuda"
 FLAT_PATH = "fat_tree:agree:cuda"
@@ -3261,6 +3296,158 @@ def dryrun_phase(dev, card, uno_records) -> list:
             for r in uno_records if r["path"] == uno_path(2)]
 
 
+# ------------------------------------------------------------- phase 18
+
+def mesh_path(what: str) -> str:
+    return f"mesh:{UNO_ARCH}:{what}"
+
+
+def _pipeline_grads(cfg, params, batch, n_stages):
+    """(loss, grads of every param) of `transformer.loss_fn` with the
+    layer stack through the stacked pipeline at n_stages stages and
+    MESH_MICRO microbatches."""
+    import functools
+    import torch
+    from repro_torch.models import params as P
+    from repro_torch.models import transformer
+    from repro_torch.sharding.pipeline import PipelineConfig, pipeline_layers
+    leaves, treedef = P.flatten(params)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    loss = transformer.loss_fn(
+        P.unflatten(treedef, leaves), batch, cfg,
+        layers_fn=pipeline_layers(PipelineConfig(n_stages, MESH_MICRO),
+                                  functools.partial(transformer.run_layers,
+                                                    cfg=cfg)))
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _pipeline_runs(dev, cfg, out):
+    """The layer stack through the stacked pipeline at 1 (the layers one
+    microbatch after another) and MESH_STAGES stages: one warm-up and
+    MESH_TIMED timed forward + backward passes each (host clock to a
+    synchronize), peak memory; loss and every gradient of each stage
+    count bitwise the one-stage run's; the loss within MESH_LOSS_RTOL of
+    `loss_fn` on the whole batch; a device profile of one pass of the
+    deepest pipeline (the forms' kernels differ by under 1 %: 57,366 /
+    57,525 / 58,008 at S = 1 / 2 / 5 on the H100, where a profile costs
+    ~30 s of trace processing)."""
+    import torch
+    from repro_torch import models
+    from repro_torch.models import transformer
+    from repro_torch.sharding.pipeline import PipelineConfig
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = models.init_params(cfg, gen)
+    batch = _train_batches(cfg, dev, 1)[0]
+    with torch.no_grad():
+        h = transformer.embed_inputs(params, batch["inputs"], cfg)
+        whole = float(models.loss_fn(params, batch, cfg))
+    out["activation_dtype"] = str(h.dtype).removeprefix("torch.")
+    out["boundary_bytes_per_step_each_way"] = h.numel() * h.element_size()
+    del h
+    first = None
+    for s in (1,) + MESH_STAGES:
+        pcfg = PipelineConfig(s, MESH_MICRO)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        secs, res = [], None
+        for _ in range(1 + MESH_TIMED):
+            del res
+            t0 = time.perf_counter()
+            res = drive(mesh_path(f"pipeline:S{s}"), lambda s=s:
+                        _pipeline_grads(cfg, params, batch, s), plain=True)
+            secs.append(time.perf_counter() - t0)
+        rec = out["pipeline"][f"S{s}"] = dict(
+            n_stages=s, n_microbatches=MESH_MICRO, n_ticks=pcfg.n_ticks,
+            bubble_fraction=pcfg.bubble_fraction,
+            ms_per_step=statistics.median(secs[1:]) * 1e3,
+            ms_per_step_all=[t * 1e3 for t in secs],
+            peak_mem_bytes=torch.cuda.max_memory_allocated(),
+            loss=float(res[0]))
+        if first is None:
+            first = res
+            rec["loss_fn_whole_batch"] = whole
+            rec["loss_rel_err"] = abs(rec["loss"] - whole) / abs(whole)
+            check(rec["loss_rel_err"] <= MESH_LOSS_RTOL,
+                  f"pipeline loss {rec['loss']} against loss_fn {whole}")
+        else:
+            rec["loss_bitwise"] = torch.equal(res[0], first[0])
+            rec["grads_bitwise"] = all(torch.equal(a, b) for a, b in
+                                       zip(res[1], first[1]))
+            rec["max_abs_grad_diff"] = max(
+                float((a.float() - b.float()).abs().max())
+                for a, b in zip(res[1], first[1]))
+            check(rec["loss_bitwise"] and rec["grads_bitwise"],
+                  f"pipeline S={s} differs from the layers one microbatch "
+                  f"after another: {rec}")
+        if s == MESH_STAGES[-1]:     # the forms launch the same kernels
+            rec["profile"] = device_profile(
+                lambda s=s: _pipeline_grads(cfg, params, batch, s), 1)
+        progress(f"pipeline S={s}", {**rec, **rec.get("profile", {})})
+    del first, res, params
+    torch.cuda.empty_cache()
+
+
+def _train_cli(args, group: bool, out_json: pathlib.Path) -> dict:
+    """`launch.train` at full width in a child process, under torchrun
+    (one rank) when `group`; returns its --out record."""
+    import os
+    cmd = [sys.executable]
+    if group:
+        cmd += ["-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "1"]
+    cmd += ["-m", "repro_torch.launch.train", "--arch", UNO_ARCH,
+            "--steps", str(MESH_NCCL_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1", "--out",
+            str(out_json), *args]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=MESH_NCCL_TIMEOUT_S)
+    check(res.returncode == 0, f"{' '.join(cmd)} exited {res.returncode}: "
+          f"{res.stdout[-2000:]} {res.stderr[-3000:]}")
+    rec = json.loads(out_json.read_text())
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["stdout_tail"] = res.stdout.strip().splitlines()[-(2 + MESH_NCCL_STEPS):]
+    return rec
+
+
+def mesh_phase(dev, card):
+    """Phase 18: the pipeline at full width (`_pipeline_runs`), its
+    stage-boundary bytes beside the Uno sync's wire bytes for the same
+    model, then the train CLI over a 1-rank NCCL group (`--mesh 1x1x1`:
+    the group, the DeviceMesh on cuda, the data shard and the step's
+    collectives set up and driven through NCCL, each the identity at one
+    rank) against the same steps with no group, losses bitwise.  No hand-written kernel runs in this phase."""
+    import torch
+    from repro_torch import models
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.uno_collectives import wire_bytes
+    from repro_torch.models import params as P
+    t_phase = time.perf_counter()
+    cfg = get_config(UNO_ARCH)
+    n_params = P.param_count(models.param_defs(cfg))
+    out = RESULTS["mesh"] = dict(
+        arch=UNO_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        microbatches=MESH_MICRO, pipeline={}, n_params=n_params,
+        uno_wire_bytes_p2=wire_bytes(n_params, RunConfig(**TRAIN_RUN), 2))
+    _pipeline_runs(dev, cfg, out)
+    torch.cuda.synchronize()
+    d = OUT.parent
+    d.mkdir(parents=True, exist_ok=True)
+    on = ["--device", dev.type]
+    plain = _train_cli(on, False, d / "mesh_nogroup.json")
+    nccl = _train_cli(on + ["--mesh", "1x1x1"], True, d / "mesh_nccl.json")
+    out["nccl_1rank"] = dict(nogroup=plain, nccl=nccl, losses_bitwise=(
+        plain["losses"] == nccl["losses"]))
+    progress("train over 1 NCCL rank", out["nccl_1rank"])
+    check(out["nccl_1rank"]["losses_bitwise"] and nccl["mesh"] == [1, 1, 1],
+          f"--mesh 1x1x1 over NCCL: {out['nccl_1rank']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("mesh", **card, **out)
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -3335,6 +3522,7 @@ def main() -> int:
     serve_phase(dev, card)
     records += families_phase(dev, card)
     records += dryrun_phase(dev, card, uno_records)
+    mesh_phase(dev, card)
     for rec in records:
         rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "

@@ -31,6 +31,15 @@ a multiply by f32(1 / p).
 On one card the reference's two implementations (`uno_impl` "leaf_local"
 and "flat") compute the same function: with no in-pod axes their padding
 units are equal.  The port has the one code path.
+
+With a pod process group (``group=``, one pod per rank) the same ring
+runs over ranks: each rank holds its own (1, N) row, the roll along dim
+0 becomes one `batch_isend_irecv` (`sharding.ring_shift`: the rows,
+scales and parity go to pod + 1, this rank receives pod - 1's), and the
+ring's per-pod indices index this rank's own row.  Each rank returns its
+own row, which is what each device of the reference's pod mesh keeps;
+every op is row-local, so rank j's result is bitwise row j of the
+stacked run.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.models import params as P
+from repro_torch.sharding import ring_shift
 
 F32 = torch.float32
 BACKENDS = ("auto", "plain")
@@ -111,16 +121,30 @@ def _unprotect(rows, scales, parity, n0, run: RunConfig, dtype=F32,
 
 # ------------------------------------------------------------- pod exchange
 
-def _pod_ring_psum(v, run: RunConfig, n_pods: int, backend: str = "auto"):
+def _pod_ring_psum(v, run: RunConfig, n_pods: int, backend: str = "auto",
+                   group=None):
     """Every pod's copy of the mean over pods of a pod-stacked (p, N) f32
     tensor, via `uno_chunks` independent protected chunk streams (ring
     reduce-scatter + all-gather for p > 2, one pairwise exchange for
     p = 2).  Returns (p, N): row j is what pod j ends with; the rows
-    differ by the quantization of the hops each pod received."""
+    differ by the quantization of the hops each pod received.  With a
+    pod `group` of n_pods ranks, `v` is this rank's (1, N) row and the
+    result its (1, N) row."""
     _check_backend(backend)
-    p, n = v.shape
-    if p != n_pods:
-        raise ValueError(f"v has {p} pod rows, n_pods is {n_pods}")
+    rows_here, n = v.shape
+    if group is None:
+        if rows_here != n_pods:
+            raise ValueError(f"v has {rows_here} pod rows, n_pods is "
+                             f"{n_pods}")
+        pod = torch.arange(n_pods, device=v.device)
+    else:
+        import torch.distributed as dist
+        if rows_here != 1 or dist.get_world_size(group) != n_pods:
+            raise ValueError(f"v of shape {tuple(v.shape)} on a pod group "
+                             f"of {dist.get_world_size(group)} ranks, "
+                             f"n_pods {n_pods}: want (1, N) on n_pods")
+        pod = torch.full((1,), dist.get_rank(group), device=v.device)
+    row = torch.arange(rows_here, device=v.device)
     n_chunks = max(1, run.uno_chunks)
     vp = F.pad(v, (0, (-n) % (n_chunks * run.uno_ec_data * ops.QUANT_BLOCK)))
     chunks = vp.chunk(n_chunks, dim=1)
@@ -128,33 +152,36 @@ def _pod_ring_psum(v, run: RunConfig, n_pods: int, backend: str = "auto"):
     def send(chunk, acc=None):
         """Protect, move pod j-1's wire bytes to pod j, unprotect (adding
         the received chunk to `acc` when it is given)."""
-        rows, scales, parity, n0 = _protect(chunk, run, backend)
-        rows, scales, parity = (torch.roll(t, 1, dims=0)
-                                for t in (rows, scales, parity))
-        return _unprotect(rows, scales, parity, n0, run, backend=backend,
-                          acc=acc)
+        wire = _protect(chunk, run, backend)
+        if group is None:
+            rows, scales, parity = (torch.roll(t, 1, dims=0)
+                                    for t in wire[:3])
+        else:
+            rows, scales, parity = ring_shift(wire[:3], group)
+        return _unprotect(rows, scales, parity, wire[3], run,
+                          backend=backend, acc=acc)
 
     if n_pods == 2:
         out = [send(c, acc=c) * 0.5 for c in chunks]     # (c + recv) * 0.5
         return torch.cat(out, dim=1)[:, :n]
 
-    pod = torch.arange(n_pods, device=v.device)
     inv_p = float(np.float32(1.0 / n_pods))
     out_chunks = []
     for c in chunks:
         cp = F.pad(c, (0, (-c.shape[1]) % n_pods))
-        parts = cp.reshape(n_pods, n_pods, -1)     # (pod, part, L)
+        parts = cp.reshape(rows_here, n_pods, -1)  # (pod row, part, L)
         # RS phase: step s moves the running sum of ring index (pod - s)
         for s in range(n_pods - 1):
             tgt = (pod - s - 1) % n_pods               # take + recv:
-            parts[pod, tgt] = send(parts[pod, (pod - s) % n_pods],
-                                   acc=parts[pod, tgt])  # from pod - 1
+            parts[row, tgt] = send(parts[row, (pod - s) % n_pods],
+                                   acc=parts[row, tgt])  # from pod - 1
         # pod j now owns the full sum of part (j + 1) % p
         # AG phase: circulate the owned parts around the ring
         for s in range(n_pods - 1):
-            recv = send(parts[pod, (pod + 1 - s) % n_pods])
-            parts[pod, (pod - s) % n_pods] = recv
-        out_chunks.append(parts.reshape(n_pods, -1)[:, :c.shape[1]] * inv_p)
+            recv = send(parts[row, (pod + 1 - s) % n_pods])
+            parts[row, (pod - s) % n_pods] = recv
+        out_chunks.append(parts.reshape(rows_here, -1)[:, :c.shape[1]]
+                          * inv_p)
     return torch.cat(out_chunks, dim=1)[:, :n]
 
 
@@ -202,33 +229,41 @@ def _unflatten(flat, meta):
 # ------------------------------------------------------------------ public
 
 def make_uno_grad_sync(cfg: ModelConfig, run: RunConfig, n_pods: int,
-                       device: DeviceLike = None, backend: str = "auto"
-                       ) -> Callable:
+                       device: DeviceLike = None, backend: str = "auto",
+                       group=None) -> Callable:
     """Returns uno_sync(stacked): per-pod gradient copies (a nested dict of
     tensors on `device`, each leaf with a leading pod axis of n_pods) ->
     the pod-mean gradients without that axis, leaf dtypes kept.
 
     `cfg` names the model whose gradients are synced (the reference uses
-    it for their partition specs; one card has none).  The result is pod
-    0's copy, the one the reference's replicated output reads.  `device`:
-    None means cuda (raises with no card); "cpu" runs the plain versions.
-    ``backend="plain"`` runs the plain versions on the card too.
+    it for their partition specs; the port syncs replicated weights).
+    The result is pod 0's copy, the one the reference's replicated output
+    reads.  With a pod `group` (n_pods ranks, one pod each) uno_sync takes
+    this rank's gradients (no pod axis) and returns this rank's copy of
+    the pod mean.  `device`: None means cuda (raises with no card); "cpu"
+    runs the plain versions.  ``backend="plain"`` runs the plain versions
+    on the card too.
     """
     _check_backend(backend)
     dev = resolve_device(device)
+    rows = n_pods if group is None else 1
 
     def uno_sync(stacked):
         leaves, treedef = P.flatten(stacked)
+        if group is not None:                  # this rank's row of the stack
+            leaves = [l[None] for l in leaves]
+            stacked = P.unflatten(treedef, leaves)
         for leaf in leaves:
             if leaf.device.type != dev.type:
                 raise ValueError(f"uno_sync for {dev.type}: a leaf is on "
                                  f"{leaf.device}")
-            if leaf.shape[0] != n_pods:
+            if leaf.shape[0] != rows:
                 raise ValueError(f"leaf of shape {tuple(leaf.shape)} has no "
-                                 f"leading pod axis of {n_pods}")
+                                 f"leading pod axis of {rows}")
         if n_pods == 1:
             return P.unflatten(treedef, [l[0] for l in leaves])
-        flat, meta = _flatten(stacked, n_pods)
-        return _unflatten(_pod_ring_psum(flat, run, n_pods, backend)[0], meta)
+        flat, meta = _flatten(stacked, rows)
+        return _unflatten(_pod_ring_psum(flat, run, n_pods, backend,
+                                         group)[0], meta)
 
     return uno_sync

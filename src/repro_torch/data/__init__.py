@@ -6,7 +6,12 @@ bitwise the reference's — so a restart resumes the exact data stream and
 no loader state goes into checkpoints.  `ShardedPipeline` builds each
 batch in a background thread on the host, in pinned memory when the
 target is a CUDA device, and the consumer copies it to the device on its
-current stream (`__next__`); one card has no shards to place.
+current stream (`__next__`).  With `shardings` (one
+`sharding.NamedSharding` per batch key, `train.batch_pspecs` on a mesh
+with process groups) each rank keeps only its block of every global
+batch: its rows, ranks numbered pod-major (rank = pod * D + data, the
+order ``jax.make_mesh`` gives devices).  The global batch is still a pure
+function of (seed, step), so the ranks' rows tile it.
 
 Prefetch threads and interpreter exit: a pipeline that is never closed
 leaves its daemon thread producing batches forever, and a thread still
@@ -23,7 +28,7 @@ import atexit
 import queue
 import threading
 import weakref
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -69,11 +74,13 @@ class ShardedPipeline:
     """Prefetching iterator of (step, batch on `device`)."""
 
     def __init__(self, cfg: ModelConfig, *, batch: int, seq: int,
-                 seed: int = 0, depth: int = 2, start_step: int = 0,
+                 shardings: Optional[dict] = None, seed: int = 0,
+                 depth: int = 2, start_step: int = 0,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
+        self.shardings = shardings
         self.seed = seed
         self.device = resolve_device(device)
         self._pin = self.device.type == "cuda"
@@ -86,6 +93,9 @@ class ShardedPipeline:
 
     def _make(self, step: int) -> dict:
         host = synth_batch(self.cfg, step, self.batch, self.seq, self.seed)
+        if self.shardings is not None:
+            host = {k: self.shardings[k].local(v).contiguous()
+                    for k, v in host.items()}
         if self._pin:
             host = {k: v.pin_memory() for k, v in host.items()}
         return host

@@ -15,7 +15,11 @@ mechanism:
 
 The reference's ``repro.ft`` with the port's checkpoints and scheduler; a
 state is a nested dict of tensors and restores onto its template's
-devices (one card has no shardings).
+devices.  Under a process group (``group=``, the ranks of a mesh, weights
+replicated) rank 0 alone writes the checkpoints, in the reference's
+on-disk format, and every rank restores the whole state from the step
+rank 0 names (after rank 0's writer has finished), so all resume in
+step.
 """
 from __future__ import annotations
 
@@ -48,9 +52,10 @@ class Supervisor:
     restart, NaN quarantine and straggler-QA bookkeeping."""
 
     def __init__(self, cfg: FTConfig, *, state_template=None,
-                 dci_chunk_bytes: float = 1 << 20):
+                 dci_chunk_bytes: float = 1 << 20, group=None):
         self.cfg = cfg
         self.template = state_template
+        self.group = group
         self.sched = ChunkWindowScheduler(
             SchedulerConfig(chunk_bytes=dci_chunk_bytes))
         self.step_ewma = None
@@ -63,13 +68,38 @@ class Supervisor:
     def try_resume(self, state, start_step: int):
         if self.cfg.ckpt_dir is None:
             return state, start_step
-        latest = ckpt_lib.latest_step(self.cfg.ckpt_dir)
+        latest = self._latest()
         if latest is None:
             return state, start_step
         restored = ckpt_lib.restore(self.cfg.ckpt_dir, latest,
                                     self.template or state)
         self.events.append({"kind": "resume", "step": latest})
         return restored, latest + 1
+
+    def _latest(self):
+        """The newest complete checkpoint: rank 0's, after its writer
+        thread, on every rank of the group."""
+        if self.group is None:
+            return ckpt_lib.latest_step(self.cfg.ckpt_dir)
+        import torch.distributed as dist
+        step = [None]
+        if dist.get_rank(self.group) == 0:
+            self._drain()
+            step = [ckpt_lib.latest_step(self.cfg.ckpt_dir)]
+        dist.broadcast_object_list(step, dist.get_global_rank(self.group, 0),
+                                   group=self.group)
+        return step[0]
+
+    def _drain(self):
+        if self._ckpt_thread is not None:       # drain the async writer
+            self._ckpt_thread.join(timeout=120)
+            self._ckpt_thread = None
+
+    def _writes(self) -> bool:
+        if self.group is None:
+            return True
+        import torch.distributed as dist
+        return dist.get_rank(self.group) == 0
 
     # --------------------------------------------------------------- loop
 
@@ -101,14 +131,13 @@ class Supervisor:
                 on_metrics(i, metrics, wall)
             if (self.cfg.ckpt_dir is not None and
                     (i + 1) % self.cfg.ckpt_every == 0):
-                self._ckpt_thread = ckpt_lib.save(
-                    self.cfg.ckpt_dir, i, state,
-                    background=self.cfg.async_ckpt, keep=self.cfg.keep)
+                if self._writes():
+                    self._ckpt_thread = ckpt_lib.save(
+                        self.cfg.ckpt_dir, i, state,
+                        background=self.cfg.async_ckpt, keep=self.cfg.keep)
                 self.events.append({"kind": "ckpt", "step": i})
             i += 1
-        if self._ckpt_thread is not None:       # drain the async writer
-            self._ckpt_thread.join(timeout=120)
-            self._ckpt_thread = None
+        self._drain()
         return state, i
 
     def _straggler_qa(self, i: int, wall: float) -> None:

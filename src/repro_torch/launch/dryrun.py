@@ -168,7 +168,7 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=tuple(SHAPES))
     ap.add_argument("--multipod", action="store_true",
-                    help="not on one card (ROADMAP item 9c)")
+                    help="not yet ported (ROADMAP item 9c-ii)")
     ap.add_argument("--uno", action="store_true",
                     help="cost the Uno step (2 pods on the card) of a "
                          "train cell")
@@ -176,8 +176,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(RESULTS_DIR))
     args = ap.parse_args(argv)
     if args.multipod:
-        raise SystemExit("--multipod: the multi-pod mesh and its collectives "
-                         "need several cards (ROADMAP item 9c)")
+        raise SystemExit("--multipod: the multi-pod dry run and its "
+                         "collective bytes are not ported yet (ROADMAP item "
+                         "9c-ii)")
     out_dir = pathlib.Path(args.out)
     if args.all:
         cells = [(a, s) for a in ARCH_IDS for s in SHAPES

@@ -36,7 +36,7 @@ Per run it records:
                  under the keys of ``unorc_cuda.LAUNCHES``;
   collectives    `collective_bytes` 0, `collective_by_op` {},
                  `collective_sites` 0: one card has none (the sharded
-                 paths are ROADMAP item 9c).
+                 paths are ROADMAP item 9c-ii).
 
 The reference multiplies each while-loop body by its trip count, because
 XLA's ``cost_analysis`` counts a scanned layer once.  Eager PyTorch

@@ -15,7 +15,7 @@ would understate those steps' compute term by that much.
 
 `hlo_analysis.analyze_collectives` has no one-card counterpart: one card
 moves no collective bytes.  It waits for the sharded paths (ROADMAP item
-9c).
+9c-ii).
 """
 from __future__ import annotations
 

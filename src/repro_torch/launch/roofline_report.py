@@ -10,7 +10,7 @@ MODEL/counted flops ratio, the roofline fraction (the model's flops at
 the card's bf16 peak over the largest term), the peak live bytes and
 whether they fit the card's 80 GB; the Uno step's cells (``--uno``) in
 a second table with their DCI bytes; then the reference's candidate
-lists.  One card has no multi-pod cells (ROADMAP item 9c).
+lists.  One card has no multi-pod cells (ROADMAP item 9c-ii).
 """
 from __future__ import annotations
 
@@ -110,7 +110,7 @@ def report(results: pathlib.Path = RESULTS_DIR) -> str:
               f"cells costed: {len(rows)} "
               f"(+{sum(1 for r in card.values() if r.get('skipped'))} "
               "documented skips); multipod cells: none on one card "
-              "(ROADMAP item 9c)"]
+              "(ROADMAP item 9c-ii)"]
     return "\n".join(lines)
 
 

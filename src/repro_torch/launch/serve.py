@@ -13,8 +13,7 @@ determinism.  The serving stats are the reference's: TTFT p50 (from
 submission, every request submitted at the start, to its first token on
 the host), inter-token p50 ((done - first) / (tokens - 1) per request),
 tokens/s and wall seconds.  `--device` defaults to cuda (with no card it
-raises); one card has no mesh, so a `mesh` raises (several cards are
-ROADMAP item 7).  The engine runs under ``torch.inference_mode()``.
+raises).  A `mesh` raises: serving on a mesh is ROADMAP item 9c-ii.  The engine runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -51,8 +50,8 @@ class Engine:
         from repro_torch.device import resolve_device
 
         if mesh is not None:
-            raise ValueError("serve: a mesh needs several cards (ROADMAP "
-                             "item 7); one card serves without one")
+            raise ValueError("serve: serving on a mesh is not ported yet "
+                             "(ROADMAP item 9c-ii); serve without one")
         self.torch = torch
         self.cfg, self.batch, self.max_len = cfg, batch, max_len
         self.device = resolve_device(device)

@@ -37,6 +37,11 @@ def abstract_params(cfg: ModelConfig) -> dict:
     return params.abstract_params(param_defs(cfg))
 
 
+def param_pspecs(cfg: ModelConfig) -> dict:
+    """The params' specs on the active mesh (``api.param_pspecs``)."""
+    return params.param_pspecs(param_defs(cfg))
+
+
 def loss_fn(params_tree, batch, cfg: ModelConfig):
     return _mod(cfg).loss_fn(params_tree, batch, cfg)
 

@@ -29,6 +29,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 
 
@@ -85,6 +86,14 @@ def abstract_params(defs: dict) -> dict:
     leaves, treedef = flatten(defs)
     return unflatten(treedef, [torch.empty(d.shape, dtype=d.dtype,
                                            device="meta") for d in leaves])
+
+
+def param_pspecs(defs: dict) -> dict:
+    """Each ParamDef's logical axes resolved on the active mesh
+    (``sharding.resolve`` with its shape): a tree of specs."""
+    leaves, treedef = flatten(defs)
+    return unflatten(treedef, [sharding.resolve(*d.axes, shape=d.shape)
+                               for d in leaves])
 
 
 def param_bytes(defs: dict) -> int:

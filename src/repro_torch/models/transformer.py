@@ -211,31 +211,45 @@ def _layer_params(layers) -> list[dict]:
             for i in range(len(per_leaf[0]))]
 
 
-def forward(params, inputs, cfg, *, collect_kv=False):
+def run_layers(layers, h, cfg):
+    """h (B, S, d) through the stacked layer tree `layers`, one layer
+    after another (each under the config's remat policy)."""
+    B, S = h.shape[:2]
+    positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    body = _remat(functools.partial(_layer, cfg=cfg, positions=positions),
+                  cfg)
+    for lp in _layer_params(layers):
+        h = body(h, lp)
+    return h
+
+
+def forward(params, inputs, cfg, *, collect_kv=False, layers_fn=None):
     """inputs: tokens (B, S) int or embeddings (B, S, d).  Returns the
     final hidden states (B, S, d), and with `collect_kv` also (ks, vs),
-    each layer's K and V stacked to (n_layers, B, S, Hkv, D)."""
+    each layer's K and V stacked to (n_layers, B, S, Hkv, D).
+    `layers_fn(layers, h) -> h` runs the layer stack (default
+    `run_layers`; `sharding.pipeline.pipeline_layers` runs it through the
+    pipeline)."""
     h = embed_inputs(params, inputs, cfg)
+    if not collect_kv:
+        run = layers_fn or functools.partial(run_layers, cfg=cfg)
+        h = run(params["layers"], h)
+        return rms_norm(h, params["final_norm"], cfg.norm_eps)
     B, S = h.shape[:2]
     positions = torch.arange(S, device=h.device)[None].expand(B, S)
     body = _remat(functools.partial(_layer, cfg=cfg, positions=positions,
-                                    want_kv=collect_kv), cfg)
+                                    want_kv=True), cfg)
     kvs = []
     for lp in _layer_params(params["layers"]):
-        if collect_kv:
-            h, kv = body(h, lp)
-            kvs.append(kv)
-        else:
-            h = body(h, lp)
+        h, kv = body(h, lp)
+        kvs.append(kv)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    if not collect_kv:
-        return h
     return h, (torch.stack([k for k, _ in kvs]),
                torch.stack([v for _, v in kvs]))
 
 
-def loss_fn(params, batch, cfg):
-    h = forward(params, batch["inputs"], cfg)
+def loss_fn(params, batch, cfg, layers_fn=None):
+    h = forward(params, batch["inputs"], cfg, layers_fn=layers_fn)
     return chunked_softmax_xent(h, params["lm_head"], batch["targets"])
 
 

@@ -333,7 +333,7 @@ def test_serve_embeddings_mode_matches_reference(monkeypatch):
 
 def test_engine_refuses_a_mesh_and_defaults_to_cuda():
     _, tcfg = _cfgs("smollm")
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
+    with pytest.raises(ValueError, match="ROADMAP item 9c"):
         TS.Engine(tcfg, batch=1, max_len=8, mesh=object(), device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")

@@ -500,9 +500,9 @@ def test_train_cli_baseline_and_uno_on_cpu():
                            "--batch", "4", "--seq", "32", "--uno", "--mesh",
                            "2x1x1"])
     assert mesh["n_pods"] == 2
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
+    with pytest.raises(ValueError, match="start 4 ranks with torchrun"):
         train_cli.main(["--device", "cpu", "--reduced", "--mesh", "2x2x1"])
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
+    with pytest.raises(ValueError, match="ROADMAP item 9c"):
         train_cli.main(["--device", "cpu", "--reduced", "--mesh", "2"])
 
 
