@@ -253,9 +253,31 @@ Phases, each printing one JSON line:
                of the group, the DeviceMesh on cuda, the data shard, the
                replication check and the step's all-reduces through NCCL
                on the card, each the identity at one rank) and without a
-               group, the losses bitwise equal.
+               group, the losses bitwise equal; the state is placed as
+               DTensors on the 1-rank mesh;
+ 19. mesh_weights — the weight axes: rank 0's program of granite-8b x
+               train_4k (full width and depth, 36 layers; 8 x 4,096
+               tokens a device) on the (2, 16, 16) pod x data x model
+               mesh over a `fake` process group of 512 ranks, the params
+               and AdamW state DTensors placed by `state_pspecs`, the
+               baseline and the Uno step at 2 pods (K3-K5 on rank 0's
+               local gradient blocks, path
+               `dryrun:multipod:train:granite-8b:uno:cuda`).  The fake
+               group's collectives move no data, so no value is checked:
+               each step traced on meta and run on the card under the op
+               counter after a warm-up each (the same ops, flops, bytes
+               and K3-K5 launches; the counted peak within 10 % of the
+               allocator's), ms per local step (median of 3 after a
+               warm-up; collectives move no data), and the collective and
+               DCI bytes a device puts on the wire per step; the bound
+               on the card leaves the collectives out (`bound_ms_local`),
+               beside it the dry run's terms with them priced
+               (`bound_ms_multipod`).  Then K3-K5 on one chunk of the
+               Uno ring's vector at that path's shape (rank 0's local
+               gradient blocks, one pod row) against their plain
+               versions, timed (records `*@multipod`).
 
-Every path that phases 4 to 6, 8 to 12 and 13 to 18 drive runs with the launch
+Every path that phases 4 to 6, 8 to 12 and 13 to 19 drive runs with the launch
 counts zeroed just before it and read just after it; each kernel record
 carries the count of the path it belongs to (`path`), and a path's
 kernel that was never launched in it fails the run.  The comparisons of
@@ -386,7 +408,7 @@ FAM_REDUCED = ("mamba2-130m", "qwen3-moe-235b-a22b", "jamba-1.5-large-398b")
 DRY_ARCHS = ("smollm-135m", "mamba2-130m", "qwen3-moe-235b-a22b")
 DRY_PEAK_RTOL = 0.10        # counted peak against max_memory_allocated
 DRY_TIMED = 3               # timed steps after the counted one
-DRY_PROCS = 4               # child processes of the dry run (8 cores)
+DRY_PROCS = 8               # child processes of the dry run (8 cores)
 DRY_WAIT_S = 600            # the dry run's children, at most
 DRY_DIR = ROOT / "chiprun_out" / "dryrun_torch"
 DRY_PATHS = {"base": f"dryrun:train:{UNO_ARCH}:base",
@@ -404,6 +426,14 @@ MESH_TIMED = 1              # timed pipeline steps after one warm-up
 MESH_LOSS_RTOL = 1e-4       # pipeline loss against loss_fn, whole batch
 MESH_NCCL_STEPS = 3
 MESH_NCCL_TIMEOUT_S = 300
+
+# phase 19: the weight axes.  Rank 0's program of granite-8b x train_4k
+# on the multi-pod mesh over a fake process group, baseline and Uno
+MESHW_ARCH = "granite-8b"
+MESHW_SHAPE = "train_4k"
+MESHW_TIMED = 3             # timed steps after a warm-up
+MESHW_PATHS = {"base": f"dryrun:multipod:train:{MESHW_ARCH}:base",
+               "uno": f"dryrun:multipod:train:{MESHW_ARCH}:uno:cuda"}
 
 MAIN_PATH = "fat_tree:steady_state:pt_cuda"
 FLAT_PATH = "fat_tree:agree:cuda"
@@ -2024,7 +2054,8 @@ def uno_chunk_len(n_params: int, run) -> int:
 
 
 def unorc_kernel_phase(dev, cfg, n_pods: int = 2, path_p2: str = "",
-                       tag: str = "", extended: bool = True):
+                       tag: str = "", extended: bool = True,
+                       n_values: int = 0, rows: int = 0):
     """Every UnoRC kernel use against its plain version on the card at the
     shapes of one chunk of the p = 2 sync, K3 also at one part of a chunk
     of the p = 4 ring, and the 55 erasure patterns;
@@ -2032,7 +2063,10 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2, path_p2: str = "",
     `kernel_phase`) and the pattern count.  The p = 2 records count the
     launches of `path_p2` (default `uno_path(2)`) and carry `tag` in
     their names; without `extended` only the four uses of a p = 2 sync
-    (K4, K3 encode and decode, K5 fused with the add) are held."""
+    (K4, K3 encode and decode, K5 fused with the add) are held.
+    `n_values` (default: cfg's parameter count) is the length of the
+    synced vector and `rows` (default n_pods) the pod rows a rank holds:
+    one on a rank of a pod group."""
     import itertools
     import torch
     from repro_torch.configs.base import RunConfig
@@ -2042,11 +2076,12 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2, path_p2: str = "",
 
     run = RunConfig()
     nx, ny = run.uno_ec_data, run.uno_ec_parity
-    c = uno_chunk_len(P.param_count(P.param_defs(cfg)), run)
+    c = uno_chunk_len(n_values or P.param_count(P.param_defs(cfg)), run)
+    rows_here = rows or n_pods
     g = torch.Generator(device=dev).manual_seed(4321)
-    x = torch.randn(n_pods, c, device=dev, generator=g) * 1e-3
+    x = torch.randn(rows_here, c, device=dev, generator=g) * 1e-3
     x[:, 5 * 256:6 * 256] = 0.0          # zero blocks: scale 1, q 0
-    x[1, :256] = 0.0
+    x[-1, :256] = 0.0
     records = []
 
     def record(counter, path, replaces, kernel, plain, n_bytes, n_ops=0,
@@ -2091,34 +2126,35 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2, path_p2: str = "",
     q, s = record("quant_int8", p2,
                   "src/repro/kernels/quant_pallas.py:36",
                   lambda: K.quant_int8(x), lambda: ref.quant_int8_ref(x),
-                  n_pods * (4 * c + c + 4 * nb), n_pods * c,
+                  rows_here * (4 * c + c + 4 * nb), rows_here * c,
                   name=f"quant_int8{tag}")
-    check(bool((s[:, 5] == 1.0).all()) and float(s[1, 0]) == 1.0,
+    check(bool((s[:, 5] == 1.0).all()) and float(s[-1, 0]) == 1.0,
           "quant_int8: zero blocks must have scale 1")
-    rows = q.view(torch.uint8).reshape(n_pods, nx, -1)
+    rows = q.view(torch.uint8).reshape(rows_here, nx, -1)
     width = rows.shape[-1]
     enc = gf.rs_generator_rows(nx, ny)
     parity = record("gf_matmul/encode", p2,
                     "src/repro/kernels/rs_pallas.py:56",
                     lambda: K.gf_matmul(rows, enc, use="encode"),
                     lambda: ref.gf_matmul_ref(enc, rows),
-                    n_pods * (nx + ny) * width, name=f"gf_matmul/encode{tag}")
+                    rows_here * (nx + ny) * width,
+                    name=f"gf_matmul/encode{tag}")
     surv = torch.cat([rows[:, ny:], parity], dim=1)
     dec = gf.rs_decode_matrix(nx, ny, tuple(range(ny)), tuple(range(ny)))
     rebuilt = record("gf_matmul/decode", p2,
                      "src/repro/kernels/rs_pallas.py:56",
                      lambda: K.gf_matmul(surv, dec, use="decode"),
                      lambda: ref.gf_matmul_ref(dec, surv),
-                     n_pods * (nx + ny) * width,
+                     rows_here * (nx + ny) * width,
                      name=f"gf_matmul/decode{tag}")
     check(torch.equal(rebuilt, rows[:, :ny]), "decode: rows {0, 1} lost")
-    xb = x.view(n_pods, nb, 256)
-    qb, sb = q.view(n_pods, nb, 256), s[..., None]
+    xb = x.view(rows_here, nb, 256)
+    qb, sb = q.view(rows_here, nb, 256), s[..., None]
     record("dequant_int8/acc", p2,
            "src/repro/kernels/quant_pallas.py:59",
            lambda: K.dequant_int8(q, s, x),
            lambda: ref.dequant_int8_ref(q, s, acc=x),
-           n_pods * (c + 4 * nb + 8 * c), 2 * n_pods * c,
+           rows_here * (c + 4 * nb + 8 * c), 2 * rows_here * c,
            library=lambda: torch.addcmul(xb, qb, sb),
            name=f"dequant_int8/acc{tag}")
     if not extended:
@@ -2147,7 +2183,7 @@ def unorc_kernel_phase(dev, cfg, n_pods: int = 2, path_p2: str = "",
     del rows4, parity4, surv4, rebuilt4
     record("dequant_int8", uno_path(4), "src/repro/kernels/quant_pallas.py:59",
            lambda: K.dequant_int8(q, s), lambda: ref.dequant_int8_ref(q, s),
-           n_pods * (c + 4 * nb + 4 * c), n_pods * c,
+           rows_here * (c + 4 * nb + 4 * c), rows_here * c,
            library=lambda: torch.mul(qb, sb))
     # both uses at block counts on either side of K5's per-warp span of
     # 4 blocks (the tail), with the addend's rows strided
@@ -3092,11 +3128,12 @@ def run_dry_cells() -> float:
     return time.perf_counter() - t0
 
 
-def _counted_on_card(fn, *args):
-    """(out, costs, measured peak): `op_costs.analyze` of fn(*args) on the
-    card, and the peak the allocator saw in it, counted as the counter
-    counts its peak: max_memory_allocated after a reset, less what was
-    allocated before the call other than the call's arguments."""
+def _counted_on_card(fn, *args, pod_size=None):
+    """(out, costs, measured peak): `op_costs.analyze_on` of fn(*args) on
+    the card (collectives priced on a mesh of `pod_size`-rank pods), and
+    the peak the allocator saw in it, counted as the counter counts its
+    peak: max_memory_allocated after a reset, less what was allocated
+    before the call other than the call's arguments."""
     import gc
     import torch
     from repro_torch.launch import op_costs
@@ -3104,7 +3141,7 @@ def _counted_on_card(fn, *args):
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    out, costs = op_costs.analyze(fn, *args)
+    out, costs = op_costs.analyze_on(pod_size, fn, *args)
     torch.cuda.synchronize()
     other = before - costs["argument_bytes"]
     return out, costs, torch.cuda.max_memory_allocated() - other
@@ -3448,6 +3485,112 @@ def mesh_phase(dev, card):
     emit("mesh", **card, **out)
 
 
+# ------------------------------------------------------------- phase 19
+
+def _meshw_cfg():
+    from repro_torch.configs.registry import get_config
+    return get_config(MESHW_ARCH)
+
+
+def _meshw_variant(dev, cfg, uno: bool, path: str) -> dict:
+    """One variant of phase 19 on a cuda fake mesh (so that DTensor takes
+    the card's collectives on meta too): the step traced on meta (a
+    warm-up for DTensor's plans, then counted), then the state drawn on
+    the card, a warm-up step, a counted step (under `drive`) and
+    MESHW_TIMED timed steps."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch import dryrun, op_costs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.roofline import roofline_terms
+    from repro_torch.models import params as P
+    shape = SHAPES[MESHW_SHAPE]
+    mesh = mesh_lib.make_fake_mesh(*dryrun.MULTIPOD, device="cuda")
+    chips = mesh.size
+    try:
+        state, rows = dryrun.rank_inputs(cfg, shape, mesh)
+        step = dryrun.rank_step(cfg, shape, mesh, uno)
+        step(state, rows, 0)
+        t0 = time.perf_counter()
+        _, meta = op_costs.analyze_on(dryrun.POD_SIZE, step, state, rows, 1)
+        trace_s = time.perf_counter() - t0
+        del state, rows, step
+        t0 = time.perf_counter()
+        state, rows = dryrun.rank_inputs(cfg, shape, mesh, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        # the length of the vector the Uno ring syncs: rank 0's local
+        # gradient blocks, placed as the params
+        n_local = sum(l.to_local().numel()
+                      for l in P.flatten(state["params"])[0])
+        step = dryrun.rank_step(cfg, shape, mesh, uno, device=dev)
+        state, _ = step(state, rows, 0)
+        (state, m), cuda, peak = drive(path, lambda: _counted_on_card(
+            step, state, rows, 1, pod_size=dryrun.POD_SIZE), plain=not uno)
+        check(cuda["kernel_launches"] == PATHS[path],
+              f"{path}: the counter saw {cuda['kernel_launches']}, the "
+              f"wrappers counted {PATHS[path]}")
+        secs = []
+        for i in range(MESHW_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, rows, 2 + i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        del state, rows, step, m
+    finally:
+        mesh_lib.destroy_fake_mesh()
+    torch.cuda.empty_cache()
+    rec = _dry_compare(path, meta, cuda, peak, secs)
+    check(meta["collectives"] == cuda["collectives"],
+          f"{path}: collectives {meta['collectives']} on meta, "
+          f"{cuda['collectives']} on the card")
+    # the fake group moves no data, so the card's bound leaves the
+    # collectives out; beside it the terms `dryrun --multipod` gives the
+    # same cell, its collectives priced
+    for key in ("bound_ms", "roofline_fraction", "roofline"):
+        rec[f"{key}_local"] = rec.pop(key)
+    rec["roofline_multipod"] = terms = roofline_terms(
+        meta["flops"], meta["hbm_bytes"], meta["collective_bytes"], chips,
+        flops_by_dtype=meta["flops_by_dtype"],
+        off_host_bytes=meta["collectives"]["off_host_bytes"])
+    rec["bound_ms_multipod"] = 1e3 * max(
+        terms["t_compute_s"], terms["t_memory_s"], terms["t_collective_s"])
+    rec.update(uno=uno, meta_trace_s=trace_s, init_s=init_s,
+               local_grad_values=n_local,
+               collectives=meta["collectives"],
+               collective_bytes_per_step=meta["collectives"]["total_bytes"],
+               dci_bytes_per_step=meta["collectives"]["dci_bytes"],
+               launches=dict(PATHS[path]),
+               timing="rank 0's local step; the fake group's collectives "
+                      "move no data")
+    return rec
+
+
+def mesh_weights_phase(dev, card) -> list:
+    """Phase 19 (see the module docstring).  Returns K3-K5's records for
+    the Uno variant's path: each held against its plain version and
+    timed on one chunk of the ring's vector at that path's length (rank
+    0's local gradient blocks) and rows (one, a rank of the pod group)."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = _meshw_cfg()
+    out = RESULTS["mesh_weights"] = dict(
+        arch=MESHW_ARCH, shape=MESHW_SHAPE, n_layers=cfg.n_layers,
+        mesh=[2, 16, 16], steps={})
+    for key, uno in (("base", False), ("uno", True)):
+        out["steps"][key] = _meshw_variant(dev, cfg, uno, MESHW_PATHS[key])
+    recs, _ = unorc_kernel_phase(
+        dev, cfg, path_p2=MESHW_PATHS["uno"], tag="@multipod",
+        extended=False, n_values=out["steps"]["uno"]["local_grad_values"],
+        rows=1)
+    out["kernels"] = recs
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("mesh_weights", **card, **out)
+    return recs
+
+
 # ------------------------------------------------------------- main
 
 def main() -> int:
@@ -3523,6 +3666,7 @@ def main() -> int:
     records += families_phase(dev, card)
     records += dryrun_phase(dev, card, uno_records)
     mesh_phase(dev, card)
+    records += mesh_weights_phase(dev, card)
     for rec in records:
         rec["launches"] = PATHS[rec["path"]].get(rec["counter"], 0)
         check(rec["launches"] > 0, f"{rec['name']} never launched on its "

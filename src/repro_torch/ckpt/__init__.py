@@ -12,6 +12,13 @@ leaves the previous checkpoint intact, and `latest_step` never sees a
 .tmp directory.  Async: ``save(..., background=True)`` copies every leaf
 to the host first (the only blocking part) and writes the files on a
 worker thread.
+
+On a mesh the state's leaves are DTensors: `to_host` gathers each whole
+leaf (a collective: every rank calls it; `ft.Supervisor` does) and one
+rank writes it (`write`), and `restore(..., shardings=)` places each
+loaded leaf as its `NamedSharding` says on whatever mesh is up, each
+rank keeping its block (the reference's elastic reshard: any mesh to any
+mesh).  A DTensor template with no shardings is placed as the template.
 """
 from __future__ import annotations
 
@@ -25,13 +32,24 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.optim import flatten_with_paths, unflatten_like
+
+
+def to_host(state) -> dict:
+    """Every leaf of `state` as (numpy array, dtype name), by path; on a
+    mesh every rank calls it (DTensor leaves are gathered whole)."""
+    return {path: _to_host(leaf)
+            for path, leaf in flatten_with_paths(state).items()}
 
 
 def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A leaf -> (savable numpy array, dtype name): bfloat16 as a uint16
-    view, as the reference stores it."""
-    t = t.detach().cpu()
+    view, as the reference stores it.  A DTensor is gathered whole."""
+    t = t.detach()
+    if sharding.is_dtensor(t):
+        t = t.full_tensor()
+    t = t.cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
@@ -48,9 +66,14 @@ def save(ckpt_dir, step: int, state, *, background: bool = False,
          keep: int = 3) -> Optional[threading.Thread]:
     """Checkpoint `state` (a nested dict of tensors) at `step`; returns
     the writer thread when `background`."""
+    return write(ckpt_dir, step, to_host(state), background=background,
+                 keep=keep)
+
+
+def write(ckpt_dir, step: int, host: dict, *, background: bool = False,
+          keep: int = 3) -> Optional[threading.Thread]:
+    """Write `to_host`'s leaves as the checkpoint of `step`."""
     ckpt_dir = pathlib.Path(ckpt_dir)
-    host = {path: _to_host(leaf)
-            for path, leaf in flatten_with_paths(state).items()}
 
     def _write():
         tmp = ckpt_dir / f"step_{step}.tmp"
@@ -98,11 +121,15 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, step: int, template):
+def restore(ckpt_dir, step: int, template, shardings=None):
     """Load `step` into the structure of `template`, each leaf on the
-    device of the template's leaf at that path."""
+    device of the template's leaf at that path: placed by `shardings` (a
+    matching tree of `sharding.NamedSharding`, leaves it lacks restored
+    whole) as a DTensor, or as a DTensor template leaf is placed."""
+    from torch.distributed.tensor import distribute_tensor
     d = pathlib.Path(ckpt_dir) / f"step_{step}"
     meta = json.loads((d / "meta.json").read_text())
+    flat_s = flatten_with_paths(shardings) if shardings is not None else {}
     out = {}
     for path, like in flatten_with_paths(template).items():
         info = meta["leaves"][path]
@@ -110,5 +137,15 @@ def restore(ckpt_dir, step: int, template):
         if list(t.shape) != info["shape"]:
             raise ValueError(f"{path}: file shape {list(t.shape)} vs "
                              f"meta {info['shape']}")
-        out[path] = t.to(like.device)
+        sh = flat_s.get(path)
+        if sh is not None:
+            dev = like.to_local().device if sharding.is_dtensor(like) \
+                else like.device
+            out[path] = sharding.wrap_block(sh.local(t).to(dev), sh, t.shape)
+        elif sharding.is_dtensor(like):
+            out[path] = distribute_tensor(
+                t.to(like.to_local().device), like.device_mesh,
+                like.placements, src_data_rank=None)
+        else:
+            out[path] = t.to(like.device)
     return unflatten_like(template, out)

@@ -15,11 +15,14 @@ mechanism:
 
 The reference's ``repro.ft`` with the port's checkpoints and scheduler; a
 state is a nested dict of tensors and restores onto its template's
-devices.  Under a process group (``group=``, the ranks of a mesh, weights
-replicated) rank 0 alone writes the checkpoints, in the reference's
-on-disk format, and every rank restores the whole state from the step
-rank 0 names (after rank 0's writer has finished), so all resume in
-step.
+devices.  Under a process group (``group=``, the ranks of a mesh) every
+rank gathers the state's DTensor leaves whole, rank 0 alone writes the
+checkpoints, in the reference's on-disk format, and every rank restores
+from the step rank 0 names (after rank 0's writer has finished), so all
+resume in step: onto `state_shardings` (a tree of
+`sharding.NamedSharding`, as `train.state_shardings` gives it: each rank
+keeps its block, whatever mesh wrote the checkpoint), else as the
+template is placed.
 """
 from __future__ import annotations
 
@@ -52,9 +55,11 @@ class Supervisor:
     restart, NaN quarantine and straggler-QA bookkeeping."""
 
     def __init__(self, cfg: FTConfig, *, state_template=None,
-                 dci_chunk_bytes: float = 1 << 20, group=None):
+                 state_shardings=None, dci_chunk_bytes: float = 1 << 20,
+                 group=None):
         self.cfg = cfg
         self.template = state_template
+        self.shardings = state_shardings
         self.group = group
         self.sched = ChunkWindowScheduler(
             SchedulerConfig(chunk_bytes=dci_chunk_bytes))
@@ -72,7 +77,7 @@ class Supervisor:
         if latest is None:
             return state, start_step
         restored = ckpt_lib.restore(self.cfg.ckpt_dir, latest,
-                                    self.template or state)
+                                    self.template or state, self.shardings)
         self.events.append({"kind": "resume", "step": latest})
         return restored, latest + 1
 
@@ -131,9 +136,10 @@ class Supervisor:
                 on_metrics(i, metrics, wall)
             if (self.cfg.ckpt_dir is not None and
                     (i + 1) % self.cfg.ckpt_every == 0):
+                host = ckpt_lib.to_host(state)     # every rank: gathers
                 if self._writes():
-                    self._ckpt_thread = ckpt_lib.save(
-                        self.cfg.ckpt_dir, i, state,
+                    self._ckpt_thread = ckpt_lib.write(
+                        self.cfg.ckpt_dir, i, host,
                         background=self.cfg.async_ckpt, keep=self.cfg.keep)
                 self.events.append({"kind": "ckpt", "step": i})
             i += 1

@@ -34,9 +34,19 @@ Per run it records:
   ops            `n_ops`, the count of each op, the top ops by bytes and
                  by flops, and `kernel_launches`: the UnoRC custom ops
                  under the keys of ``unorc_cuda.LAUNCHES``;
-  collectives    `collective_bytes` 0, `collective_by_op` {},
-                 `collective_sites` 0: one card has none (the sharded
-                 paths are ROADMAP item 9c-ii).
+  collectives    `collective_bytes`, `collective_by_op` and
+                 `collective_sites` (the count), priced as
+                 ``launch.collectives`` prices them, and `collectives`,
+                 that module's record with the DCI bytes (`analyze_on`
+                 names the pod size; one card issues none).  They are
+                 not HBM bytes here: the roofline's collective term
+                 holds them.
+
+On a mesh the run's tensors are DTensors: the mode lets each DTensor op
+through to DTensor (``NotImplemented``), which dispatches this rank's
+local ops and its collectives back through the mode, so the counts are
+one rank's program; the ops DTensor's sharding propagation runs on fake
+tensors to infer shapes are run and not counted.
 
 The reference multiplies each while-loop body by its trip count, because
 XLA's ``cost_analysis`` counts a scanned layer once.  Eager PyTorch
@@ -50,11 +60,15 @@ import weakref
 from collections import Counter
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import unorc_cuda
+from repro_torch.launch import collectives
 
 _aten = torch.ops.aten
 
@@ -67,6 +81,10 @@ _METADATA = {
     _aten.storage_offset.default, _aten.sym_storage_offset.default,
     _aten.numel.default, _aten.sym_numel.default, _aten.dim.default,
     torch.ops.prim.layout.default,
+    # a functional collective's wait and wrapper: no work on the device
+    # (a meta tensor's collective is not waited on)
+    torch.ops._c10d_functional.wait_tensor.default,
+    torch.ops._c10d_functional._wrap_tensor_autograd.default,
 }
 # no data moved: allocations that write nothing, a view without an alias
 # annotation
@@ -79,7 +97,9 @@ TOP = 10
 
 
 def _tensors(tree) -> list:
-    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+    """The tensors of `tree`, a DTensor as its local block."""
+    return [t._local_tensor if isinstance(t, DTensor) else t
+            for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -102,8 +122,10 @@ class CostMode(TorchDispatchMode):
     docstring.  `track_args(args)` marks the run's argument storages
     live before the run starts."""
 
-    def __init__(self):
+    def __init__(self, pod_size=None):
         super().__init__()
+        self.coll = None if pod_size is None else \
+            collectives.CollectiveCounter(pod_size)
         self.flops = 0
         self.flops_by_dtype: Counter = Counter()
         self.hbm_bytes = 0
@@ -138,8 +160,20 @@ class CostMode(TorchDispatchMode):
     # -- ops
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func in _METADATA:
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented          # DTensor dispatches its local ops
+        if func in _METADATA or _propagating():
             return func(*args, **kwargs)
+        if collectives.is_collective(func):
+            out = func(*args, **kwargs)
+            self.ops[func.name()] += 1
+            if self.coll is None:
+                self.coll = collectives.CollectiveCounter(1 << 30)
+            self.coll.record(func, args, kwargs, out)
+            for t in _tensors(out):
+                self._track(t)
+            self.peak = max(self.peak, self._live[0])
+            return out
         packet = func._overloadpacket
         if packet not in flop_registry and \
                 func is not torch.ops.prim.device.default:
@@ -170,6 +204,12 @@ class CostMode(TorchDispatchMode):
         return out
 
 
+def _propagating() -> bool:
+    """DTensor's sharding propagation is running ops on fake tensors."""
+    return any(isinstance(m, FakeTensorMode)
+               for m in _get_current_dispatch_mode_stack())
+
+
 def _release(live, seen, key, n):
     live[0] -= n
     seen.discard(key)
@@ -180,6 +220,11 @@ def _top(counter: Counter) -> list:
 
 
 def analyze(fn, *args, **kwargs) -> tuple:
+    """`analyze_on` with no mesh: (out, costs) of fn(*args, **kwargs)."""
+    return analyze_on(None, fn, *args, **kwargs)
+
+
+def analyze_on(pod_size, fn, *args, **kwargs) -> tuple:
     """(out, costs): fn(*args, **kwargs) run under `CostMode`, and the
     costs of that run as a JSON-ready dict (see the module docstring).
     Python's cycle collector is run before the call and paused during
@@ -193,7 +238,7 @@ def analyze(fn, *args, **kwargs) -> tuple:
     gc.collect()
     paused = gc.isenabled()
     gc.disable()
-    mode = CostMode()
+    mode = CostMode(pod_size)
     try:
         arg_bytes = mode.track_args((args, kwargs))
         with mode:
@@ -207,14 +252,16 @@ def analyze(fn, *args, **kwargs) -> tuple:
     out_storages = {id(t.untyped_storage()): t.untyped_storage().nbytes()
                     for t in _tensors(out)}
     out_bytes = sum(n for k, n in out_storages.items() if k not in arg_keys)
+    coll = collectives.summarize(mode.coll.events if mode.coll else [])
     costs = {
         "flops": float(mode.flops),
         "flops_by_dtype": {k: float(v) for k, v in
                            sorted(mode.flops_by_dtype.items())},
         "hbm_bytes": float(mode.hbm_bytes),
-        "collective_bytes": 0.0,
-        "collective_by_op": {},
-        "collective_sites": 0,
+        "collective_bytes": coll["total_bytes"],
+        "collective_by_op": coll["by_op"],
+        "collective_sites": coll["count"],
+        "collectives": coll,
         "argument_bytes": arg_bytes,
         "peak_bytes": mode.peak,
         "temp_bytes": mode.peak - arg_bytes,

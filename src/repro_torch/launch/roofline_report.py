@@ -9,8 +9,10 @@ work, from NVIDIA's H100 SXM data sheet at 700 W), the dominant term, the
 MODEL/counted flops ratio, the roofline fraction (the model's flops at
 the card's bf16 peak over the largest term), the peak live bytes and
 whether they fit the card's 80 GB; the Uno step's cells (``--uno``) in
-a second table with their DCI bytes; then the reference's candidate
-lists.  One card has no multi-pod cells (ROADMAP item 9c-ii).
+a second table with their DCI bytes; the multi-pod cells (``dryrun
+--multipod``: rank 0's program on the (2, 16, 16) mesh, baseline and
+Uno) in a third with each device's collective and DCI bytes a step; then
+the reference's candidate lists.
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ def row(rec) -> dict:
         "useful_ratio": rec.get("useful_flops_ratio"),
         "roofline_fraction": fraction(rec),
         "dci_GB": c.get("dci_bytes", 0.0) / 1e9,
+        "collective_GB": c.get("collective_bytes", 0.0) / 1e9,
         "peak_GB": rec["peak_bytes"] / 1e9,
         "fits": rec["fits_one_card"],
     }
@@ -66,12 +69,15 @@ def _rows(recs) -> list:
     return rows
 
 
-def table(rows, dci: bool = False) -> list:
+def table(rows, dci: bool = False, coll: bool = False) -> list:
     hdr = ("| arch | shape | t_comp (s) | t_mem (s) | t_coll (s) | dominant "
            "| MODEL/counted | roofline frac | peak GB | fits |")
     cols = 10
+    if coll:
+        hdr += " collective GB/device |"
+        cols += 1
     if dci:
-        hdr += " DCI GB/pod |"
+        hdr += " DCI GB/pod |" if not coll else " DCI GB/device |"
         cols += 1
     out = [hdr, "|" + "---|" * cols]
     for x in rows:
@@ -80,6 +86,8 @@ def table(rows, dci: bool = False) -> list:
                 f"| **{x['dominant']}** | {(x['useful_ratio'] or 0):.2f} | "
                 f"{(x['roofline_fraction'] or 0) * 100:.1f}% | "
                 f"{x['peak_GB']:.4g} | {'yes' if x['fits'] else 'no'} |")
+        if coll:
+            line += f" {x['collective_GB']:.4g} |"
         if dci:
             line += f" {x['dci_GB']:.4g} |"
         out.append(line)
@@ -89,11 +97,19 @@ def table(rows, dci: bool = False) -> list:
 def report(results: pathlib.Path = RESULTS_DIR) -> str:
     card = load("card", results)
     uno = load("card-uno", results)
+    multi = {**load("multipod", results), **{
+        (a, s + " (uno)"): r for (a, s), r in
+        load("multipod-uno", results).items()}}
     rows = _rows(card)
     lines = [f"roofline bounds against {H100_SXM['name']}", *table(rows)]
     if uno:
         lines += ["", "### Uno step, 2 pods on the card", *table(_rows(uno),
                                                                 dci=True)]
+    if multi:
+        mrows = [row(dict(r, shape=s)) for (a, s), r in sorted(multi.items())
+                 if not r.get("skipped")]
+        lines += ["", "### multi-pod, rank 0 of (2, 16, 16)",
+                  *table(mrows, dci=True, coll=True)]
     live = [x for x in rows if x["roofline_fraction"] is not None]
     worst = sorted(live, key=lambda x: x["roofline_fraction"])[:5]
     coll = sorted(live, key=lambda x: -x["t_collective_s"] /
@@ -109,8 +125,10 @@ def report(results: pathlib.Path = RESULTS_DIR) -> str:
               "",
               f"cells costed: {len(rows)} "
               f"(+{sum(1 for r in card.values() if r.get('skipped'))} "
-              "documented skips); multipod cells: none on one card "
-              "(ROADMAP item 9c-ii)"]
+              "documented skips); multipod cells costed: "
+              f"{sum(1 for r in multi.values() if not r.get('skipped'))} "
+              f"(+{sum(1 for r in multi.values() if r.get('skipped'))} "
+              "documented skips)"]
     return "\n".join(lines)
 
 

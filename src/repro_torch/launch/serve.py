@@ -13,7 +13,15 @@ determinism.  The serving stats are the reference's: TTFT p50 (from
 submission, every request submitted at the start, to its first token on
 the host), inter-token p50 ((done - first) / (tokens - 1) per request),
 tokens/s and wall seconds.  `--device` defaults to cuda (with no card it
-raises).  A `mesh` raises: serving on a mesh is ROADMAP item 9c-ii.  The engine runs under ``torch.inference_mode()``.
+raises).  The engine runs under ``torch.inference_mode()``.
+
+On a mesh (``mesh=``, a `sharding.Mesh` with its DeviceMesh; every rank
+of its group runs the same engine on the same requests) the params are
+DTensors placed by `param_pspecs` under the config's profile rules, each
+wave's rows split on "kv_batch", the cache placed as `cache_defs`
+resolve it (the prefill's `shard` sites; each decode step writes its
+token into every rank's block), and the greedy tokens gathered whole on
+every rank; the mesh engine runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -37,27 +45,31 @@ class Request:
 
 
 class Engine:
-    """One model on one device.  `params` is a parameter tree on the
-    device (e.g. the reference's carried across with
-    ``models.params.tree_from_arrays``); None draws them from a
-    ``torch.Generator`` seeded with `seed`."""
+    """One model on one device, or on a mesh.  `params` is a parameter
+    tree on the device (e.g. the reference's carried across with
+    ``models.params.tree_from_arrays``; placed on the mesh); None draws
+    them from a ``torch.Generator`` seeded with `seed`."""
 
     def __init__(self, cfg, *, batch: int, max_len: int, mesh=None,
                  params=None, seed: int = 0, device=None):
         import torch
 
-        from repro_torch import models, train
+        from repro_torch import models, sharding, train
         from repro_torch.device import resolve_device
 
-        if mesh is not None:
-            raise ValueError("serve: serving on a mesh is not ported yet "
-                             "(ROADMAP item 9c-ii); serve without one")
-        self.torch = torch
+        self.torch, self.sharding = torch, sharding
         self.cfg, self.batch, self.max_len = cfg, batch, max_len
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rules = sharding.profile_rules(cfg)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = models.init_params(cfg, gen)
+            params = models.init_params(cfg, gen, mesh=mesh)
+        elif mesh is not None:
+            with sharding.use_mesh(mesh, self.rules):
+                sh = sharding.spec_tree_to_shardings(
+                    mesh, models.param_pspecs(cfg))
+            params = sharding.distribute(params, sh)
         self.params = params
         self.prefill = train.make_prefill_step(cfg, max_len)
         self.decode = train.make_decode_step(cfg)
@@ -84,21 +96,47 @@ class Engine:
                                dtype=cfg.cdtype(), device=self.device)
         return torch.from_numpy(nxt[:, None].copy()).to(self.device)
 
+    def _placed(self, x):
+        """A wave's inputs on the mesh: rows split on "kv_batch"."""
+        if self.mesh is None:
+            return x
+        sh = self.sharding
+        return sh.distribute(x, sh.named_sharding(
+            "kv_batch", *([None] * (x.dim() - 1)), shape=x.shape))
+
+    def _tokens(self, logits) -> np.ndarray:
+        """The greedy tokens on the host, gathered whole on a mesh."""
+        if self.sharding.is_dtensor(logits):
+            logits = logits.full_tensor()
+        return logits.argmax(-1).to(self.torch.int32).cpu().numpy()
+
     def run_wave(self, reqs: list[Request]) -> None:
-        with self.torch.inference_mode():
-            logits, cache, pos = self.prefill(self.params,
-                                              self.wave_inputs(reqs))
-            nxt = logits.argmax(-1).to(self.torch.int32).cpu().numpy()
+        import contextlib
+        ctx = (self.sharding.use_mesh(self.mesh, self.rules)
+               if self.mesh is not None else contextlib.nullcontext())
+        with ctx:
+            self._run_wave(reqs)
+
+    def _run_wave(self, reqs: list[Request]) -> None:
+        # DTensor's views fail under inference mode (an inference tensor
+        # has no version counter to share): a mesh serves under no_grad
+        off = self.torch.no_grad if self.mesh is not None \
+            else self.torch.inference_mode
+        with off():
+            logits, cache, pos = self.prefill(
+                self.params, self._placed(self.wave_inputs(reqs)))
+            nxt = self._tokens(logits)
             now = time.perf_counter()
             for i, r in enumerate(reqs):
                 r.t_first = now
                 r.out = [int(nxt[i])]
             max_new = max(r.max_new for r in reqs)
             for _ in range(max_new - 1):
-                logits, cache = self.decode(self.params, cache,
-                                            self._step_inputs(nxt), pos)
+                logits, cache = self.decode(
+                    self.params, cache, self._placed(self._step_inputs(nxt)),
+                    pos)
                 pos += 1
-                nxt = logits.argmax(-1).to(self.torch.int32).cpu().numpy()
+                nxt = self._tokens(logits)
                 now = time.perf_counter()
                 for i, r in enumerate(reqs):
                     if len(r.out) < r.max_new:

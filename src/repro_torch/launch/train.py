@@ -4,21 +4,24 @@
       --steps 200 --batch 8 --seq 256 [--uno --pods 2] \\
       [--ckpt-dir /tmp/ck] [--reduced] [--device cpu]
   PYTHONPATH=src torchrun --standalone --nproc-per-node P*D \\
-      -m repro_torch.launch.train --mesh PxDx1 [--uno] ...
+      -m repro_torch.launch.train --mesh PxDxM [--uno] ...
 
 The reference's flags, plus `--device` (default cuda; with no card it
 raises), `--pods` and `--out` (the result as JSON, written by rank 0).
 `--mesh` names the (pod, data, model) axes ("P", "DxM" or "PxDxM").
 Started by torchrun (or inside an initialized process group) the run
-takes one rank per (pod, data) device, P * D ranks: NCCL with one card
-per rank on cuda, gloo on the CPU; each rank steps its rows of the
-global batch on replicated weights, the baseline averaging the
-gradients over pod x data, `--uno` over data and then through the
-protected pod ring (`core.uno_collectives`, K3-K5 on the card); rank 0
-writes the checkpoints.  Without a process group, `--mesh Px1x1` is P
-pods stacked on the one card, and a data axis above 1 raises (start P *
-D ranks).  A model axis above 1 raises: it shards the weights (ROADMAP
-item 9c-ii).  The supervisor's straggler QA feeds the host chunk-window
+takes one rank per (pod, data, model) device, P * D * M ranks: NCCL with
+one card per rank on cuda, gloo on the CPU.  The params and optimizer
+state are DTensors placed by `train.state_pspecs` (the weights split
+over the data and model axes as the config's profile resolves them),
+each rank steps its rows of the global batch, the baseline reducing the
+gradients over the batch axes, `--uno` within each pod and then through
+the protected pod ring on each rank's local blocks
+(`core.uno_collectives`, K3-K5 on the card); every rank gathers the
+checkpoints and rank 0 writes them, and a restart restores onto the
+placements.  Without a process group, `--mesh Px1x1` is P pods stacked
+on the one card, and a data or model axis above 1 raises (start P * D *
+M ranks).  The supervisor's straggler QA feeds the host chunk-window
 scheduler (`core.window_scheduler`).  On a CPU use `--reduced` (a tiny
 same-family config).
 """
@@ -37,29 +40,26 @@ def _axes(args) -> dict:
         return {"pod": args.pods, "data": 1, "model": 1}
     dims = tuple(int(x) for x in args.mesh.split("x"))
     names = ("pod", "data", "model")[-len(dims):]
-    axes = {"pod": 1, "data": 1, "model": 1, **dict(zip(names, dims))}
-    if axes["model"] > 1:
-        raise ValueError(f"--mesh {args.mesh}: a model axis above 1 shards "
-                         "the weights (ROADMAP item 9c-ii, the weight axes)")
-    return axes
+    return {"pod": 1, "data": 1, "model": 1, **dict(zip(names, dims))}
 
 
 def _init_group(args, axes):
     """The process group torchrun set up the environment for, or the one
     already initialized; None when there is neither.  Raises when a data
-    axis above 1 has no group, or the group is not P * D ranks."""
+    or model axis above 1 has no group, or the group is not P * D * M
+    ranks."""
     import torch
     import torch.distributed as dist
-    need = axes["pod"] * axes["data"]
+    need = axes["pod"] * axes["data"] * axes["model"]
     if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
-        if axes["data"] > 1:
+        if axes["data"] > 1 or axes["model"] > 1:
             raise ValueError(
-                f"--mesh {args.mesh}: a data axis above 1 runs one rank per "
-                f"(pod, data) device: start {need} ranks with torchrun "
-                "(one card takes Px1x1 stacked)")
+                f"--mesh {args.mesh}: a data or model axis above 1 runs one "
+                f"rank per (pod, data, model) device: start {need} ranks "
+                "with torchrun (one card takes Px1x1 stacked)")
         return None
     if not args.mesh:
-        raise ValueError("a process group trains over --mesh PxDx1")
+        raise ValueError("a process group trains over --mesh PxDxM")
     if not dist.is_initialized():
         if args.device.startswith("cuda"):
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
@@ -79,8 +79,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", default="",
-                    help="PxDx1: P pods x D data ranks (a process group of "
-                         "P*D ranks, or Px1x1 stacked on one card)")
+                    help="PxDxM: P pods x D data x M model ranks (a process "
+                         "group of P*D*M ranks, or Px1x1 stacked on one "
+                         "card)")
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--uno", action="store_true")
     ap.add_argument("--uno-chunks", type=int, default=8)
@@ -97,7 +98,7 @@ def main(argv=None) -> dict:
     import torch
     import torch.distributed as dist
 
-    from repro_torch import data, ft, sharding, train
+    from repro_torch import data, ft, train
     from repro_torch.configs.base import RunConfig, reduced
     from repro_torch.configs.registry import get_config
     from repro_torch.device import resolve_device
@@ -115,17 +116,17 @@ def main(argv=None) -> dict:
                     uno_chunks=args.uno_chunks, seed=args.seed)
     n_pods = axes["pod"] if args.uno else 1
 
-    mesh = shardings = None
+    mesh = shardings = state_sh = None
     if group is not None:
-        mesh = make_mesh((axes["pod"], axes["data"], 1),
+        mesh = make_mesh((axes["pod"], axes["data"], axes["model"]),
                          ("pod", "data", "model"), group)
-        if args.batch % mesh.size:
+        rows = axes["pod"] * axes["data"]
+        if args.batch % rows:
             raise ValueError(f"batch {args.batch} does not split over the "
-                             f"{mesh.size} ranks of --mesh {args.mesh}")
-        with sharding.use_mesh(mesh):
-            specs = train.batch_pspecs(cfg, data.synth_batch(
-                cfg, 0, args.batch, args.seq))
-        shardings = sharding.spec_tree_to_shardings(mesh, specs)
+                             f"{rows} pod x data ranks of --mesh {args.mesh}")
+        shardings = train.batch_shardings(cfg, mesh, data.synth_batch(
+            cfg, 0, args.batch, args.seq))
+        state_sh = train.state_shardings(cfg, mesh)
     rank0 = group is None or dist.get_rank(group) == 0
     state = train.make_train_state(cfg, seed=args.seed, device=dev,
                                    mesh=mesh)
@@ -133,7 +134,8 @@ def main(argv=None) -> dict:
                                  mesh=mesh)
     sup = ft.Supervisor(ft.FTConfig(ckpt_dir=args.ckpt_dir or None,
                                     ckpt_every=args.ckpt_every),
-                        state_template=state, group=group)
+                        state_template=state, state_shardings=state_sh,
+                        group=group)
     losses = []
 
     def on_metrics(i, metrics, wall):

@@ -28,9 +28,19 @@ def param_defs(cfg: ModelConfig) -> dict:
     return _mod(cfg).param_defs(cfg)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
-    """The model's parameters, drawn from `generator` on its device."""
-    return params.init_params(param_defs(cfg), generator)
+def init_params(cfg: ModelConfig, generator, mesh=None, check=None) -> dict:
+    """The model's parameters, drawn from `generator` on its device.  On
+    `mesh` (a `sharding.Mesh` with its DeviceMesh) each leaf is a DTensor
+    placed by `param_pspecs` under the config's profile rules, this
+    rank's block of the unsharded draw (`params.init_params`);
+    generator None draws nothing (meta)."""
+    shardings = None
+    if mesh is not None:
+        from repro_torch import sharding
+        with sharding.use_mesh(mesh, sharding.profile_rules(cfg)):
+            shardings = sharding.spec_tree_to_shardings(mesh,
+                                                        param_pspecs(cfg))
+    return params.init_params(param_defs(cfg), generator, shardings, check)
 
 
 def abstract_params(cfg: ModelConfig) -> dict:

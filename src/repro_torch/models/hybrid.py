@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models.layers import (checkpointed, chunked_softmax_xent,
-                                       rms_norm)
+                                       embed_lookup, rms_norm)
 from repro_torch.models.mamba2 import (mamba_block, mamba_cache_defs,
                                        mamba_decode_step, mamba_param_defs)
 from repro_torch.models.moe import moe_param_defs
@@ -29,6 +29,7 @@ from repro_torch.models.transformer import (_layer_params, _logits,
                                             attention_decode_block,
                                             attn_param_defs, mlp_param_defs,
                                             residual_ffn)
+from repro_torch.sharding import shard
 
 
 def _n_periods(cfg: ModelConfig) -> int:
@@ -66,7 +67,8 @@ def param_defs(cfg: ModelConfig) -> dict:
 
 
 def _embed(params, tokens, cfg):
-    return F.embedding(tokens.long(), params["embed"]).to(cfg.cdtype())
+    return shard(embed_lookup(params["embed"], tokens).to(cfg.cdtype()),
+                 "batch", None, None)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, collect_state=False):

@@ -12,12 +12,25 @@ the chunk's logits instead of keeping them; with gradients off (serving,
 under ``torch.inference_mode()``) the bodies run directly.  The large
 products stay ``torch.matmul`` / ``einsum``.  `decode_attention` is the
 serving path's one-token attention against the padded KV cache.
+
+On DTensors (a mesh's params and batch, `sharding.distribute`) the
+products, norms and elementwise ops propagate; `shard` constrains the
+MLP's hidden activation and the loss chunk's logits where the reference
+does (``layers.py:133, 157``).  Three bodies run on each rank's local
+blocks instead, because they make plain tensors (masks, carries) or use
+ops with no sharding strategy: the attention core on this rank's heads
+(q's head block with the KV heads it reads), the embedding lookup on
+this rank's vocab rows (masked, its output a pending sum over the vocab
+axes, as GSPMD's), and the loss chunk's pick and log-sum-exp.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch import sharding
+from repro_torch.sharding import shard
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -62,6 +75,7 @@ def apply_rope(x, cos, sin):
     """x: (..., S, H, D); cos/sin: (..., S, D/2) broadcast over heads."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
+    cos, sin = sharding.replicate_like(x, cos, sin)
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
@@ -97,6 +111,10 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     kv_len: optional — positions >= kv_len are masked (padded KV cache).
     Returns (B, Sq, Hq, D) in q.dtype.
     """
+    if sharding.is_dtensor(q):
+        return local_heads(flash_attention, q, k, v, causal=causal,
+                           q_offset=q_offset, kv_block=kv_block,
+                           kv_len=kv_len)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -128,6 +146,9 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     (positions >= kv_len are masked).  f32 scores over the whole cache,
     softmax, f32 product with V; GQA through (B, Hkv, G, D).
     """
+    if sharding.is_dtensor(q):
+        return local_heads(decode_attention, q, k_cache, v_cache,
+                           kv_len=kv_len)
     B, _, Hq, D = q.shape
     _, Smax, Hkv, _ = k_cache.shape
     G = Hq // Hkv
@@ -138,6 +159,69 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(F32))
     return out.reshape(B, 1, Hq, D).to(q.dtype)
+
+
+def local_heads(fn, q, k, v, **kw):
+    """`fn(q, k, v, **kw)` (an attention over (B, S, H, D) operands) on
+    each rank's local blocks: q's batch rows and head block as `shard`
+    left them, k / v redistributed to the same batch rows (heads as
+    resolved for their count).  When the KV heads are replicated but q's
+    heads are split (granite-8b's 8 KV heads on a 16-way model axis), a
+    rank reads only the KV heads of its q block: a slice when the block
+    holds whole GQA groups, else one KV head per q head (G = 1 locally);
+    their gradient is then a pending sum over the head axes.  Returns
+    the DTensor of q's shape and placements."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    q_spec = sharding.resolve("batch", None, "tensor", None, shape=q.shape)
+    kv_spec = sharding.resolve("batch", None, "tensor", None, shape=k.shape)
+    mesh = sharding.active_mesh()
+    split_q = sharding.mesh_axes(q_spec[2:3])
+    part = split_q if not sharding.mesh_axes(kv_spec[2:3]) else ()
+    ql = sharding.to_local(q, q_spec)
+    kl = sharding.to_local(k, kv_spec, grad_partial=part)
+    vl = sharding.to_local(v, kv_spec, grad_partial=part)
+    if part:
+        h0 = sharding.NamedSharding(mesh, q_spec).local_block(q.shape)[0][2]
+        hq = ql.shape[2]
+        if h0 % G == 0 and hq % G == 0:
+            kl = kl[:, :, h0 // G:(h0 + hq) // G]
+            vl = vl[:, :, h0 // G:(h0 + hq) // G]
+        else:
+            idx = torch.arange(h0, h0 + hq, device=ql.device) // G
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+    return sharding.from_local(fn(ql, kl, vl, **kw).contiguous(), q_spec,
+                               q.shape)
+
+
+def embed_lookup(table, tokens):
+    """`F.embedding(tokens, table)`.  On DTensors each rank looks up its
+    batch rows in its vocab block of the table (gathered along the model
+    dim) and zeroes the tokens outside it: the result is a pending sum
+    over the vocab axes, which the reference's ``shard(h, "batch", None,
+    None)`` then reduces (GSPMD's masked gather and all-reduce)."""
+    if not sharding.is_dtensor(table):
+        return F.embedding(tokens.long(), table)
+    t_spec = sharding.resolve("vocab", None, shape=table.shape)
+    x_spec = sharding.resolve("batch", None, shape=tokens.shape)
+    vocab = sharding.mesh_axes(t_spec)
+    tl = sharding.to_local(table, t_spec,
+                           grad_partial=sharding.mesh_axes(x_spec))
+    xl = sharding.to_local(tokens, x_spec).long()
+    if vocab:
+        mesh = sharding.active_mesh()
+        v0 = sharding.NamedSharding(mesh, t_spec).local_block(
+            table.shape)[0][0]
+        idx = xl - v0
+        inside = (idx >= 0) & (idx < tl.shape[0])
+        out = F.embedding(idx.clamp(0, tl.shape[0] - 1), tl)
+        out = torch.where(inside[..., None], out, out.new_zeros(()))
+    else:
+        out = F.embedding(xl, tl)
+    return sharding.from_local(out, x_spec + (None,),
+                               tuple(tokens.shape) + (table.shape[1],),
+                               partial=vocab)
 
 
 # ---------------------------------------------------------------- MLP
@@ -158,18 +242,57 @@ def mlp(h, p, act: str):
             z = F.gelu(u.to(F32), approximate="tanh").to(h.dtype)
         else:
             raise ValueError(act)
+    z = shard(z, "batch", None, "tensor")
     return torch.matmul(z, p["w_down"])
 
 
 # ---------------------------------------------------------------- losses
 
-def _xent_chunk(hx, yx, lm_head):
-    logits = torch.matmul(hx, lm_head).to(F32)
+def _nll(logits, yx):
     lse = torch.logsumexp(logits, dim=-1)
     pick = torch.gather(logits, -1, torch.clamp(yx, min=0)[..., None])[..., 0]
     valid = (yx >= 0).to(F32)
     nll = (lse - pick) * valid
     return nll.sum(), valid.sum()
+
+
+def _xent_chunk(hx, yx, lm_head):
+    logits = torch.matmul(hx, lm_head).to(F32)
+    logits = shard(logits, "batch", None, "vocab")
+    if sharding.is_dtensor(logits):
+        return _nll_sharded(logits, yx)
+    return _nll(logits, yx)
+
+
+def _nll_sharded(logits, yx):
+    """`_nll` on DTensor logits.  Unsplit vocab: `_nll` on each rank's
+    batch rows, its sums pending over the batch axes.  Split vocab: the
+    log-sum-exp as a max and a sum of exponentials over the vocab axes
+    (DTensor reductions: an all-reduce each), the target's logit picked
+    on the rank whose vocab block holds it (a pending sum)."""
+    l_spec = sharding.resolve("batch", None, "vocab", shape=logits.shape)
+    y_spec = sharding.resolve("batch", None, shape=yx.shape)
+    batch = sharding.mesh_axes(y_spec)
+    vocab = sharding.mesh_axes(l_spec[2:])
+    yl = sharding.to_local(yx, y_spec)
+    valid = (yl >= 0).to(F32)
+    if not vocab:
+        t, c = _nll(sharding.to_local(logits, l_spec), yl)
+        return (sharding.from_local(t, (), (), partial=batch),
+                sharding.from_local(c, (), (), partial=batch))
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    ll = sharding.to_local(logits, l_spec)
+    mesh = sharding.active_mesh()
+    v0 = sharding.NamedSharding(mesh, l_spec).local_block(logits.shape)[0][2]
+    idx = torch.clamp(yl, min=0) - v0
+    inside = (idx >= 0) & (idx < ll.shape[-1])
+    pick = torch.gather(ll, -1, idx.clamp(0, ll.shape[-1] - 1)[..., None])
+    pick = torch.where(inside, pick[..., 0], pick.new_zeros(()))
+    pick = sharding.from_local(pick, y_spec, yx.shape, partial=vocab)
+    nll = (lse - pick) * sharding.from_local(valid, y_spec, yx.shape)
+    return nll.sum(), sharding.from_local(valid.sum(), (), (),
+                                          partial=batch)
 
 
 def chunked_softmax_xent(h, lm_head, labels, *, chunk: int = 1024):
@@ -184,6 +307,7 @@ def chunked_softmax_xent(h, lm_head, labels, *, chunk: int = 1024):
         raise ValueError(f"S {S} is not a multiple of chunk {chunk}")
     tot = torch.zeros((), dtype=F32, device=h.device)
     cnt = torch.zeros((), dtype=F32, device=h.device)
+    tot, cnt = sharding.replicate_like(h, tot, cnt)
     for i in range(S // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
         t, c = checkpoint(_xent_chunk, h[:, sl], labels[:, sl], lm_head,

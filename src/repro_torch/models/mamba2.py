@@ -12,15 +12,21 @@ products each, so that no (B, Q, K, H, P) intermediate is ever formed
 reference checkpoints its scan body, each chunk runs under a
 non-reentrant ``torch.utils.checkpoint`` when gradients are on: the
 backward pass keeps the state carry and recomputes the rest.
+
+On a mesh `shard` constrains the input projection and the gated output
+to "tensor" (``mamba2.py:86, 134``); the conv and the scan between them
+run on each rank's batch rows (`_ssd_local`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import checkpointed, rms_norm
 from repro_torch.models.params import ParamDef
+from repro_torch.sharding import shard
 
 F32 = torch.float32
 
@@ -105,30 +111,22 @@ def _chunk_body(state, cum_k, clast_k, B_k, C_k, dtx_k):
     return state, (y_in + y_x).permute(0, 2, 1, 3)
 
 
-def mamba_block(h, p, cfg: ModelConfig, *, return_state: bool = False):
-    """Full-sequence SSD with the residual.  h: (B, S, d) -> (B, S, d).
-
-    With return_state=True also returns (conv_tail, final_ssm_state) for
-    the prefill -> decode handoff: conv_tail is the last W - 1 *pre-conv*
-    xbc rows (B, W - 1, conv_ch), left-padded with zeros when S < W - 1."""
-    B, S0, d = h.shape
+def _ssd(proj, p, cfg: ModelConfig, S0: int, return_state: bool):
+    """The causal conv and the chunked SSD scan on plain tensors.
+    proj: (B, S, zxbcdt) with S padded to whole chunks.  Returns the
+    gated y (B, S0, d_in) float32, and with `return_state` also the
+    prefill handoff (conv_tail, final state)."""
+    B, S, _ = proj.shape
     d_in, H, N, P, conv_ch, _ = ssm_dims(cfg)
     Q = min(cfg.ssm_chunk, S0)
-    pad = (-S0) % Q
-    S = S0 + pad
     nc = S // Q
-
-    hn = rms_norm(h, p["norm"], cfg.norm_eps)
-    if pad:
-        hn = F.pad(hn, (0, 0, 0, pad))
-    proj = torch.matmul(hn, p["in_proj"])
     z, xbc_raw, dt_raw = _split_proj(proj, cfg)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xs, B_, C_ = xbc[..., :d_in], xbc[..., d_in:d_in + N], xbc[..., d_in + N:]
 
     dt = F.softplus(dt_raw.to(F32) + p["dt_bias"].to(F32))     # (B, S, H)
-    if pad:  # padded steps must be state-identity (decay 1, contribution 0)
-        dt = dt * (torch.arange(S, device=h.device) < S0).to(F32)[
+    if S != S0:  # padded steps must be state-identity (decay 1, contribution 0)
+        dt = dt * (torch.arange(S, device=proj.device) < S0).to(F32)[
             None, :, None]
     A = -torch.exp(p["A_log"].to(F32))                          # (H,)
     x_h = xs.reshape(B, S, H, P)
@@ -143,7 +141,7 @@ def mamba_block(h, p, cfg: ModelConfig, *, return_state: bool = False):
     dtx_c = dtx.reshape(B, nc, Q, H, P)
 
     body = checkpointed(_chunk_body)
-    state = torch.zeros((B, H, N, P), dtype=F32, device=h.device)
+    state = torch.zeros((B, H, N, P), dtype=F32, device=proj.device)
     ys = []
     for c in range(nc):
         state, y_c = body(state, cum[:, c], c_last[:, c], Bc[:, c],
@@ -152,16 +150,66 @@ def mamba_block(h, p, cfg: ModelConfig, *, return_state: bool = False):
     y = torch.stack(ys, dim=1).reshape(B, S, H, P)
     y = y + p["D"].to(F32)[None, None, :, None] * x_h.to(F32)
     y = (y.reshape(B, S, d_in) * F.silu(z.to(F32)))[:, :S0]
+    if not return_state:
+        return y
+    W = cfg.ssm_conv_width
+    lo = max(0, S0 - (W - 1))
+    conv_tail = xbc_raw[:, lo:S0]                     # (B, <= W - 1, conv_ch)
+    if S0 < W - 1:
+        conv_tail = F.pad(conv_tail, (0, 0, W - 1 - S0, 0))
+    return y, conv_tail, state
+
+
+_SSD_PARAMS = ("conv_w", "conv_b", "dt_bias", "A_log", "D")
+
+
+def _ssd_local(proj, p, cfg: ModelConfig, S0: int, return_state: bool):
+    """`_ssd` on DTensors: proj gathered whole along its model dim (the
+    conv and the split of z, x, B, C and dt have no sharding strategy)
+    and every head computed on each rank's batch rows; the small SSD
+    params replicated, their gradients pending over the batch axes.
+    Outputs replicated along the model axis."""
+    B, S, Z = proj.shape
+    d_in = ssm_dims(cfg)[0]
+    spec = sharding.resolve("batch", None, None, shape=proj.shape)
+    batch = sharding.mesh_axes(spec)
+    local = {n: sharding.to_local(p[n], (), grad_partial=batch)
+             for n in _SSD_PARAMS}
+    out = _ssd(sharding.to_local(proj, spec), local, cfg, S0, return_state)
+    if not return_state:
+        return sharding.from_local(out, spec, (B, S0, d_in))
+    y, tail, state = out
+    return (sharding.from_local(y, spec, (B, S0, d_in)),
+            sharding.from_local(tail.contiguous(), spec,
+                                (B,) + tuple(tail.shape[1:])),
+            sharding.from_local(state, spec + (None, None),
+                                (B,) + tuple(state.shape[1:])))
+
+
+def mamba_block(h, p, cfg: ModelConfig, *, return_state: bool = False):
+    """Full-sequence SSD with the residual.  h: (B, S, d) -> (B, S, d).
+
+    With return_state=True also returns (conv_tail, final_ssm_state) for
+    the prefill -> decode handoff: conv_tail is the last W - 1 *pre-conv*
+    xbc rows (B, W - 1, conv_ch), left-padded with zeros when S < W - 1."""
+    B, S0, d = h.shape
+    Q = min(cfg.ssm_chunk, S0)
+    pad = (-S0) % Q
+
+    hn = rms_norm(h, p["norm"], cfg.norm_eps)
+    if pad:
+        hn = F.pad(hn, (0, 0, 0, pad))
+    proj = torch.matmul(hn, p["in_proj"])
+    proj = shard(proj, "batch", None, "tensor")
+    ssd = _ssd_local if sharding.is_dtensor(proj) else _ssd
+    out = ssd(proj, p, cfg, S0, return_state)
+    y = out[0] if return_state else out
     y = rms_norm(y.to(h.dtype), p["gate_norm"], cfg.norm_eps)
-    out = h + torch.matmul(y, p["out_proj"])
+    y = shard(y, "batch", None, "tensor")
+    out_h = h + torch.matmul(y, p["out_proj"])
     if return_state:
-        W = cfg.ssm_conv_width
-        lo = max(0, S0 - (W - 1))
-        conv_tail = xbc_raw[:, lo:S0]                 # (B, <= W - 1, conv_ch)
-        if S0 < W - 1:
-            conv_tail = F.pad(conv_tail, (0, 0, W - 1 - S0, 0))
-        return out, (conv_tail, state)
-    return out
+        return out_h, (out[1], out[2])
+    return out_h
 
 
 def mamba_cache_defs(cfg: ModelConfig, n_layers: int, batch: int) -> dict:

@@ -6,7 +6,8 @@ Each family module (`transformer`, `ssm`, `hybrid`) gives its tree of
 `param_defs` here dispatches on the family.  `abstract_params` gives a
 tree as meta-device tensors (``api.abstract_params``), `init_params`
 materializes it (``api.init_params``) from an explicit
-`torch.Generator` on the target device, leaf by leaf in JAX's order,
+`torch.Generator` on the target device, leaf by leaf in JAX's order
+(on a mesh each rank keeps its block of every leaf as a DTensor),
 each leaf in its own dtype (the MoE router and the SSM's ``dt_bias``,
 ``A_log`` and ``D`` are float32 leaves in a bfloat16 tree).  The draws
 are torch's, not ``jax.random``'s: parity with the reference comes from
@@ -68,12 +69,38 @@ def _materialize(d: ParamDef, generator: torch.Generator) -> torch.Tensor:
     return (x * scale).to(d.dtype)
 
 
-def init_params(defs: dict, generator: torch.Generator) -> dict:
+def init_params(defs: dict, generator: Optional[torch.Generator],
+                shardings=None, check=None) -> dict:
     """The ParamDef tree materialized on `generator`'s device: ones and
     zeros as declared, else N(0, 1) x scale (1/sqrt(fan_in) by default)
-    in float32, cast to the leaf dtype.  Leaves draw in JAX leaf order."""
+    in float32, cast to the leaf dtype.  Leaves draw in JAX leaf order.
+
+    `shardings` (the same tree of `sharding.NamedSharding`): each leaf
+    is drawn whole, this rank's block kept as a DTensor and the rest
+    dropped, so the numbers equal the unsharded draw; `check(leaf)` sees
+    each whole leaf first (`train.make_train_state` holds it against
+    rank 0's).  generator None: meta tensors (nothing is drawn; with
+    `shardings`, each rank's block)."""
     leaves, treedef = flatten(defs)
-    return unflatten(treedef, [_materialize(d, generator) for d in leaves])
+    shs = flatten(shardings)[0] if shardings is not None else [None] * len(
+        leaves)
+    out = []
+    for d, sh in zip(leaves, shs):
+        if generator is None:
+            shape = d.shape if sh is None else sh.local_block(d.shape)[1]
+            block = torch.empty(shape, dtype=d.dtype, device="meta")
+            out.append(block if sh is None else sharding.wrap_block(
+                block, sh, d.shape))
+            continue
+        full = _materialize(d, generator)
+        if sh is None:
+            out.append(full)
+            continue
+        if check is not None:
+            check(full)
+        out.append(sharding.wrap_block(sh.local(full).clone(), sh, d.shape))
+        del full
+    return unflatten(treedef, out)
 
 
 def param_count(defs: dict) -> int:
@@ -136,17 +163,22 @@ def _is_bf16(a: np.ndarray) -> bool:
     return a.dtype.name == "bfloat16"
 
 
-def tree_from_arrays(tree, device) -> dict:
+def tree_from_arrays(tree, device, shardings=None) -> dict:
     """A nested dict of numpy arrays -> the same dict of tensors on
     `device`.  ml_dtypes bfloat16 arrays (as JAX hands them to numpy) keep
-    their bits: uint16 view -> torch.bfloat16 view."""
+    their bits: uint16 view -> torch.bfloat16 view.  `shardings` (the
+    same tree of `sharding.NamedSharding`): each leaf placed as a
+    DTensor, this rank's block copied to `device`."""
     leaves, treedef = flatten(tree)
+    shs = flatten(shardings)[0] if shardings is not None else [None] * len(
+        leaves)
     out = []
-    for a in leaves:
+    for a, sh in zip(leaves, shs):
         a = np.asarray(a)
         t = torch.tensor(a.view(np.int16)).view(torch.bfloat16) \
             if _is_bf16(a) else torch.tensor(a)
-        out.append(t.to(device))
+        out.append(t.to(device) if sh is None else sharding.wrap_block(
+            sh.local(t).to(device), sh, t.shape))
     return unflatten(treedef, out)
 
 

@@ -17,10 +17,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models.layers import (checkpointed, chunked_softmax_xent,
-                                       rms_norm)
+                                       embed_lookup, rms_norm)
 from repro_torch.models.mamba2 import (mamba_block, mamba_cache_defs,
                                        mamba_decode_step, mamba_param_defs)
 from repro_torch.models.transformer import _layer_params, _logits
+from repro_torch.sharding import shard
 
 
 def param_defs(cfg: ModelConfig) -> dict:
@@ -37,8 +38,8 @@ def param_defs(cfg: ModelConfig) -> dict:
 
 def _embed(params, tokens, cfg):
     table = params["embed"] if "embed" in params else params["lm_head"].T
-    return torch.nn.functional.embedding(tokens.long(),
-                                         table).to(cfg.cdtype())
+    return shard(embed_lookup(table, tokens).to(cfg.cdtype()),
+                 "batch", None, None)
 
 
 def forward(params, tokens, cfg: ModelConfig, *, collect_state=False):

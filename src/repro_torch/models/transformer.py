@@ -20,6 +20,14 @@ new cache, `decode_step` writes into the given one in place (a slice
 store) and returns it; `pos` is a host integer.  Run serving with
 gradients off (``torch.inference_mode()``): the checkpoints of the
 training path are then skipped.
+
+On a mesh (DTensor params and inputs) `shard` constrains q, k and v to
+the "tensor" heads, the attention output and the embedded input to the
+batch rows, and the prefill cache to "kv_batch" / "tensor", at the
+reference's sites (``transformer.py:90-92, 107, 153, 196-197``); a q, k
+or v projection whose head count does not divide the model axis is
+gathered before its head split (`_split_heads`).  The decode step writes
+the token's K/V into each rank's block of the cache.
 """
 from __future__ import annotations
 
@@ -30,12 +38,15 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import sharding
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models.layers import (apply_rope, checkpointed,
                                        chunked_softmax_xent,
-                                       decode_attention, flash_attention,
-                                       mlp, rms_norm, rope_cos_sin)
+                                       decode_attention, embed_lookup,
+                                       flash_attention, mlp, rms_norm,
+                                       rope_cos_sin)
+from repro_torch.sharding import shard
 from repro_torch.models.moe import moe_ffn, moe_param_defs
 
 REMAT_POLICIES = ("full", "dots", "none")
@@ -97,17 +108,34 @@ def param_defs(cfg: ModelConfig) -> dict:
 
 # ---------------------------------------------------------------- blocks
 
+def _split_heads(x, H, D):
+    """(B, S, H * D) -> (B, S, H, D).  A DTensor is first placed as the
+    "tensor" heads resolve for H (a projection split over a model axis
+    that H does not divide is gathered whole: DTensor cannot split the
+    dim across a shard boundary)."""
+    B, S = x.shape[:2]
+    if sharding.is_dtensor(x):
+        spec = sharding.resolve("batch", None, "tensor", None,
+                                shape=(B, S, H, D))
+        mesh = sharding.active_mesh()
+        x = x.redistribute(mesh.device_mesh,
+                           sharding.placements(spec[:3]))
+    return x.reshape(B, S, H, D)
+
+
 def _qkv(h, p, cfg, positions):
-    B, S, _ = h.shape
     hn = rms_norm(h, p["norm"], cfg.norm_eps)
     q = torch.matmul(hn, p["wq"])
     k = torch.matmul(hn, p["wk"])
     v = torch.matmul(hn, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(q, cfg.n_heads, cfg.head_dim)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.head_dim)
+    q = shard(q, "batch", None, "tensor", None)
+    k = shard(k, "batch", None, "tensor", None)
+    v = shard(v, "batch", None, "tensor", None)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, h.dtype)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -119,7 +147,8 @@ def attention_block(h, p, cfg, *, positions, kv_block=1024):
     B, S, _ = h.shape
     q, k, v = _qkv(h, p, cfg, positions)
     o = flash_attention(q, k, v, causal=True, kv_block=min(kv_block, S))
-    return torch.matmul(o.reshape(B, S, cfg.q_dim), p["wo"]), (k, v)
+    out = torch.matmul(o.reshape(B, S, cfg.q_dim), p["wo"])
+    return shard(out, "batch", None, None), (k, v)
 
 
 def attention_decode_block(h, p, cfg, k_cache, v_cache, pos: int):
@@ -129,10 +158,19 @@ def attention_decode_block(h, p, cfg, k_cache, v_cache, pos: int):
     B = h.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
     q, k, v = _qkv(h, p, cfg, positions)
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+    _write_token(k_cache, k, pos)
+    _write_token(v_cache, v, pos)
     o = decode_attention(q, k_cache, v_cache, pos + 1)
     return torch.matmul(o.reshape(B, 1, cfg.q_dim), p["wo"])
+
+
+def _write_token(cache, x, pos: int):
+    """cache[:, pos] = x[:, 0] in place; on DTensors into this rank's
+    block of the cache, x placed as the cache is."""
+    if sharding.is_dtensor(cache):
+        x = x.redistribute(cache.device_mesh, cache.placements).to_local()
+        cache = cache.to_local()
+    cache[:, pos] = x[:, 0].to(cache.dtype)
 
 
 def residual_ffn(h, out, p, cfg, moe: bool):
@@ -196,10 +234,11 @@ def _remat(fn, cfg):
 
 def embed_inputs(params, batch_inputs, cfg):
     if cfg.input_mode == "embeddings":
-        return batch_inputs.to(cfg.cdtype())
-    table = params["embed"] if "embed" in params else params["lm_head"].T
-    return torch.nn.functional.embedding(batch_inputs.long(),
-                                         table).to(cfg.cdtype())
+        h = batch_inputs.to(cfg.cdtype())
+    else:
+        table = params["embed"] if "embed" in params else params["lm_head"].T
+        h = embed_lookup(table, batch_inputs).to(cfg.cdtype())
+    return shard(h, "batch", None, None)
 
 
 def _layer_params(layers) -> list[dict]:
@@ -284,7 +323,9 @@ def prefill(params, inputs, cfg, max_len: int):
     if pad:
         ks = torch.nn.functional.pad(ks, (0, 0, 0, 0, 0, pad))
         vs = torch.nn.functional.pad(vs, (0, 0, 0, 0, 0, pad))
-    return _logits(h, params), {"k": ks, "v": vs}, S
+    cache = {"k": shard(ks, None, "kv_batch", None, "tensor", None),
+             "v": shard(vs, None, "kv_batch", None, "tensor", None)}
+    return _logits(h, params), cache, S
 
 
 def decode_step(params, cache, inputs, pos: int, cfg):

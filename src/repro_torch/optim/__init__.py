@@ -23,6 +23,13 @@ SGD-M, Muon and Adafactor keep the reference's eager order.
 ``apply_updates(donate=True)`` writes each leaf's new values into the
 given params and state as soon as they are computed, so that an update
 never holds a second copy of them (a model that fills the card).
+
+On a mesh the leaves are DTensors: the elementwise updates run on each
+rank's block, Muon's Newton–Schulz products and the norms propagate
+through DTensor (gathers and partial sums over the sharded dims), and
+every new leaf is placed back as its old one was (`_leafwise`), so the
+state keeps the placements `train.state_pspecs` gives it: factored and
+scalar states replicated, the rest as their params.
 """
 from __future__ import annotations
 
@@ -33,6 +40,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch import sharding
 
 F32 = torch.float32
 
@@ -75,7 +84,8 @@ def _sqrt32(x):
 
 
 def _scalar(x, like):
-    return torch.full((), x, dtype=F32, device=like.device)
+    return sharding.replicate_like(
+        like, torch.full((), x, dtype=F32, device=like.device))
 
 
 def fma32(a, b, c):
@@ -106,7 +116,17 @@ def fma32_exact(a, b, c):
 # ---------------------------------------------------------------- init
 
 def _zeros_like(p, dtype):
+    """Zeros of p's shape: placed as p when p is a DTensor."""
+    if sharding.is_dtensor(p):
+        return torch.zeros_like(p, dtype=dtype)
     return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
+def _zeros_replicated(p, shape, dtype):
+    """Zeros of `shape` (a factored state): replicated on p's mesh when p
+    is a DTensor."""
+    z = torch.zeros(shape, dtype=dtype, device=p.device)
+    return sharding.replicate_like(p, z)
 
 
 def _host_step():
@@ -123,8 +143,9 @@ def init_opt_state(params, cfg) -> dict:
     if cfg.optimizer == "adafactor":
         def factored(p):
             if p.ndim >= 2:
-                return {"vr": _zeros_like(p[..., 0], F32),
-                        "vc": _zeros_like(p[..., 0, :], F32)}
+                return {"vr": _zeros_replicated(p, p.shape[:-1], F32),
+                        "vc": _zeros_replicated(
+                            p, p.shape[:-2] + p.shape[-1:], F32)}
             return {"v": _zeros_like(p, F32)}
         return {"f": _map(factored, params), "step": _host_step()}
     raise ValueError(cfg.optimizer)
@@ -190,6 +211,8 @@ def _leafwise(upd, targets: dict, donate: bool) -> dict:
     out = {}
     for k, dst in targets.items():
         res = upd(k)
+        if sharding.is_dtensor(dst[0]):
+            res = tuple(_placed_as(r, d) for r, d in zip(res, dst))
         if donate:
             for d, r in zip(dst, res):
                 for dd, rr in (zip((d[n] for n in sorted(d)),
@@ -199,6 +222,16 @@ def _leafwise(upd, targets: dict, donate: bool) -> dict:
             res = dst
         out[k] = res
     return out
+
+
+def _placed_as(new, old):
+    """`new` (a DTensor, or a dict of them) redistributed to the
+    placements of `old`."""
+    if isinstance(new, dict):
+        return {n: _placed_as(new[n], old[n]) for n in new}
+    if tuple(new.placements) == tuple(old.placements):
+        return new
+    return new.redistribute(old.device_mesh, old.placements)
 
 
 @torch.no_grad()

@@ -21,18 +21,27 @@ dim spread over several mesh axes, such as ("pod", "data"), is split
 major to minor, as JAX splits it (and as DTensor splits a dim that
 several mesh dims shard, in mesh-dim order).
 
-The rules are thread-local.  The reference's `shard_map` and `set_mesh`
-are JAX plumbing (a per-device program, a mesh context for tracing) and
-have no counterpart: a rank of a process group is already its own
-program.  This slice applies the batch axes; activations stay rank-local
-tensors, which `shard` returns unchanged.
+The active mesh and rules are process-wide (`_State`).  The reference's
+`shard_map` and `set_mesh` are JAX plumbing (a per-device program, a
+mesh context for tracing) and have no counterpart: a rank of a process
+group is already its own program.
+
+Params, optimizer state and the batch are DTensors on the mesh's
+`DeviceMesh` (`distribute`): model code runs on them unchanged, DTensor's
+sharding propagation inserting the gathers, partial-sum reductions and
+reduce-scatters that GSPMD would, and `shard` at the reference's call
+sites redistributes an activation where the reference constrains it.  The
+few bodies DTensor cannot propagate (an op with no sharding strategy, or
+plain tensors made inside the body) run on local tensors between
+`to_local` and `from_local`, whose placements say where each operand is
+gathered to and how its gradient comes back; each such place names its
+collective bytes in ROADMAP.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-import threading
 from typing import Any, NamedTuple, Optional, Sequence
 
 # Logical axis -> tuple of mesh axes (joined) in priority order.  A mesh
@@ -92,7 +101,11 @@ class Mesh:
         return self.device_mesh.get_group(name)
 
 
-class _State(threading.local):
+class _State:
+    """The active mesh and rules, process-wide: the autograd engine runs
+    a CUDA backward (and the recompute of a checkpoint in it) on its own
+    device thread, which must see the mesh the forward ran under."""
+
     def __init__(self):
         self.mesh: Optional[Mesh] = None
         self.rules: dict[str, tuple[str, ...]] = dict(DEFAULT_RULES)
@@ -212,7 +225,9 @@ class NamedSharding(NamedTuple):
     @property
     def placements(self) -> tuple:
         """One DTensor placement per mesh dim: Shard(d) where the spec
-        puts that mesh axis on tensor dim d, else Replicate()."""
+        puts that mesh axis on tensor dim d, else Replicate().  An axis
+        of size 1 is Replicate() either way (its one rank holds the
+        whole dim; DTensor then merges and splits that dim freely)."""
         from torch.distributed.tensor import Replicate, Shard
         where = {}
         for d, entry in enumerate(self.spec):
@@ -224,8 +239,9 @@ class NamedSharding(NamedTuple):
                     f"order {self.mesh.axis_names}: DTensor splits a dim "
                     "over several mesh dims in mesh order")
             where.update({a: d for a in axes})
-        return tuple(Shard(where[a]) if a in where else Replicate()
-                     for a in self.mesh.axis_names)
+        sizes = self.mesh.axis_sizes
+        return tuple(Shard(where[a]) if a in where and sizes[a] > 1
+                     else Replicate() for a in self.mesh.axis_names)
 
     def local_block(self, shape: Sequence[int],
                     coord: Optional[dict] = None):
@@ -310,3 +326,117 @@ def ring_shift(tensors: Sequence, group, shift: int = 1) -> list:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recvs
+
+
+# ------------------------------------------------------------ DTensors
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _mesh(mesh: Optional[Mesh]) -> Mesh:
+    mesh = _STATE.mesh if mesh is None else mesh
+    if mesh is None or mesh.device_mesh is None:
+        raise ValueError("DTensor placement needs a mesh with a DeviceMesh "
+                         "(launch.mesh.make_mesh / make_fake_mesh)")
+    return mesh
+
+
+def placements(spec: Spec, partial: Sequence[str] = (),
+               mesh: Optional[Mesh] = None) -> tuple:
+    """`NamedSharding(mesh, spec).placements` (the active mesh by
+    default), with each mesh axis named in `partial` a pending sum
+    (``Partial()``) instead."""
+    from torch.distributed.tensor import Partial
+    mesh = _mesh(mesh)
+    out = NamedSharding(mesh, spec).placements
+    return tuple(Partial() if a in partial else p
+                 for a, p in zip(mesh.axis_names, out))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def from_local(t, spec: Spec, shape, partial: Sequence[str] = (),
+               mesh: Optional[Mesh] = None):
+    """The DTensor of global `shape` whose block on this rank is `t`,
+    placed by `spec` (and pending sums over the `partial` axes).
+    Differentiable: the gradient comes back as this rank's block."""
+    from torch.distributed.tensor import DTensor
+    mesh = _mesh(mesh)
+    return DTensor.from_local(t, mesh.device_mesh,
+                              placements(spec, partial, mesh),
+                              shape=tuple(shape),
+                              stride=_contiguous_stride(shape),
+                              run_check=False)
+
+
+def to_local(x, spec: Spec, grad_partial: Sequence[str] = (),
+             mesh: Optional[Mesh] = None):
+    """This rank's block of DTensor `x` redistributed to `spec`.  Its
+    gradient is taken as a pending sum over the `grad_partial` axes (the
+    axes along which this rank's use of the block covers only its own
+    rows, e.g. the batch axes of a replicated weight)."""
+    mesh = _mesh(mesh)
+    return x.redistribute(mesh.device_mesh, placements(spec, mesh=mesh)) \
+        .to_local(grad_placements=placements(spec, grad_partial, mesh))
+
+
+def replicate_like(x, *ts):
+    """`ts` as DTensors replicated on `x`'s mesh when `x` is a DTensor
+    (positions, masks and tables made inside model code), else as they
+    are."""
+    if not is_dtensor(x):
+        return ts if len(ts) > 1 else ts[0]
+    from torch.distributed.tensor import DTensor, Replicate
+    dm = x.device_mesh
+    out = tuple(DTensor.from_local(t, dm, [Replicate()] * dm.ndim,
+                                   run_check=False) for t in ts)
+    return out if len(out) > 1 else out[0]
+
+
+def mesh_axes(spec: Spec) -> tuple[str, ...]:
+    """The mesh axes a spec uses, in spec order."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def distribute(tree, shardings):
+    """A nested dict of global tensors -> the same dict of DTensors, each
+    leaf built from this rank's block (a copy) under the same dict of
+    `NamedSharding`, with the leaf's global shape: no collective, and on
+    ``meta`` nothing is materialized."""
+    if isinstance(tree, dict):
+        return {k: distribute(v, shardings[k]) for k, v in tree.items()}
+    return wrap_block(shardings.local(tree).clone(), shardings, tree.shape)
+
+
+def wrap_block(block, sh: NamedSharding, shape):
+    """This rank's `block` of a `shape` tensor placed by `sh`, as a
+    DTensor (no collective)."""
+    return from_local(block.contiguous(), sh.spec, shape, mesh=sh.mesh)
+
+
+def local_tree(tree):
+    """Each DTensor leaf's local block (plain leaves as they are)."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    return tree.to_local() if is_dtensor(tree) else tree
+
+
+def wrap_like(tree, like):
+    """Local blocks -> DTensors with the placements and global shapes of
+    the DTensor leaves of `like` (plain leaves of `like`: as they are)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return {k: wrap_like(v, like[k]) for k, v in tree.items()}
+    if not is_dtensor(like):
+        return tree
+    return DTensor.from_local(tree, like.device_mesh, like.placements,
+                              shape=like.shape, stride=like.stride(),
+                              run_check=False)

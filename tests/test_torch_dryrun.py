@@ -588,6 +588,10 @@ def test_full_size_decode_cell_and_the_report(tmp_path, capsys):
     frac = roofline_report.fraction(rec)
     assert frac == (rec["model_flops"] / 989e12) / max(
         r["t_compute_s"], r["t_memory_s"], r["t_collective_s"])
-    with pytest.raises(SystemExit, match="9c"):
-        dryrun.main(["--arch", "smollm-135m", "--shape", "train_4k",
-                     "--multipod"])
+    assert dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k",
+                        "--multipod", "--out", str(tmp_path)]) == 0
+    multi = json.loads((tmp_path / "smollm-135m__decode_32k__multipod.json")
+                       .read_text())
+    assert multi["multi_pod"] is True and multi["chips"] == 512
+    assert set(multi["collectives"]) >= {"total_bytes", "by_op",
+                                         "dci_bytes", "count"}

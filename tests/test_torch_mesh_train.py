@@ -14,17 +14,19 @@ the installed jax):
     one-process step on the whole batch;
   * `2x1x1` Uno (f32): rank 0's first step (loss, gradients, updated
     params) bitwise the one-card Uno step;
-  * `2x2x1` Uno (f32): each pod's mean over its data ranks within rtol
-    1e-5 of that pod's row of the one-process `pod_grads`, and every
-    rank's `mesh_grads` bitwise its pod's row of the stacked ring fed
-    those means;
+  * `2x2x1` Uno (f32): each pod's gradients over its data ranks (the
+    DTensor reduction of `pod_mesh_grads`) within rtol 1e-5 of that
+    pod's row of the one-process `pod_grads`, and every rank's
+    `mesh_grads` bitwise its pod's row of the stacked ring fed those
+    blocks;
   * `2x2x1` Uno through the CLI, 3 steps: losses within 1e-2 of the
     one-process baseline's (tests/test_collectives.py's bar), the same on
     every rank (a set-up check: the warm-up lr barely moves the weights);
   * a 2-rank restart drill: rank 0 writes, both ranks restore the saved
     state bitwise and finish bitwise where an uninterrupted run ends;
   * `sharding.shard` redistributes a DTensor to the resolved placements;
-  * the refusals: no group, a model axis, too few ranks.
+  * the refusals: no group, too few ranks; a model axis builds its
+    step, and on the CLI it needs torchrun's ranks.
 
 All ranks are one spawned gloo group of 4 (~15 s)."""
 import dataclasses
@@ -68,8 +70,8 @@ def f32_cfg():
 
 
 def f32_state(cfg, mesh=None):
-    """The seeded train state (replication checked on a mesh), params cast
-    to float32."""
+    """The seeded train state (on a mesh: DTensors, each rank's blocks of
+    rank 0's draw), params cast to float32."""
     st = TT.make_train_state(cfg, seed=0, device="cpu", mesh=mesh)
     leaves, treedef = TP.flatten(st["params"])
     st["params"] = TP.unflatten(treedef, [l.float() for l in leaves])
@@ -91,7 +93,10 @@ def global_batch(cfg, step=0):
 
 
 def leaves_np(tree):
-    return [t.detach().float().numpy() for t in TP.flatten(tree)[0]]
+    """Every leaf as a float32 array (a DTensor gathered whole: every rank
+    of its mesh calls it)."""
+    return [(t.full_tensor() if TS.is_dtensor(t) else t).detach().float()
+            .numpy() for t in TP.flatten(tree)[0]]
 
 
 def flat_np(tree):
@@ -137,9 +142,7 @@ for p, grp in ((2, g01), (4, W)):
 
 
 def local(mesh, batch):
-    with sharding.use_mesh(mesh):
-        specs = train.batch_pspecs(cfg, batch)
-    sh = sharding.spec_tree_to_shardings(mesh, specs)
+    sh = train.batch_shardings(cfg, mesh, batch)
     return {k: sh[k].local(v) for k, v in batch.items()}, sh
 
 
@@ -159,15 +162,20 @@ for key, shape, pods in (("base", (1, 2, 1), 1), ("uno", (2, 1, 1), 2)):
         for i, l in enumerate(T.leaves_np(new["params"])):
             res[f"{key}/p{i}"] = l
 
-# 2x2x1 Uno: this rank's own gradients (no collective) and mesh_grads
+# 2x2x1 Uno: this rank's own gradients (one process, no collective), its
+# pod's gradients (the in-pod DTensor reduction) and mesh_grads
 mesh4 = M.make_mesh((2, 2, 1), T.NAMES)
 state = T.f32_state(cfg, mesh4)
 step = train.make_train_step(cfg, T.RUN, n_pods=2, device="cpu", mesh=mesh4)
 batch, _ = local(mesh4, T.global_batch(cfg))
-own_loss, own = step.grads(state["params"], batch)
+own_loss, own = train.make_train_step(cfg, T.RUN, device="cpu").grads(
+    T.f32_state(cfg)["params"], batch)
+_, pre = step.pod_mesh_grads(state["params"], batch)
 loss, grads = step.mesh_grads(state["params"], batch)
 res["pd/own_loss"], res["pd/loss"] = own_loss.numpy(), loss.numpy()
-res["pd/own"], res["pd/grads"] = T.flat_np(own), T.flat_np(grads)
+res["pd/own"] = T.flat_np(own)
+res["pd/pre"] = T.flat_np(sharding.local_tree(pre))
+res["pd/grads"] = T.flat_np(sharding.local_tree(grads))
 
 # sharding.shard redistributes a DTensor over the 2x2x1 mesh
 from torch.distributed.tensor import Replicate, distribute_tensor
@@ -210,11 +218,10 @@ if rank < 2:
                         group=mesh.group)
     restored, start = sup.try_resume(T.f32_state(cfg, mesh), 0)
     res["drill/start"] = np.array(start)
-    res["drill/restored_eq"] = np.array(train._bits(P.flatten(restored)[0])
-                                        .equal(train._bits(P.flatten(four)[0])))
+    bits = lambda t: train._bits(P.flatten(sharding.local_tree(t))[0])  # noqa: E731
+    res["drill/restored_eq"] = np.array(bits(restored).equal(bits(four)))
     final = run(sup, 6, start=start, state=restored)
-    res["drill/final_eq"] = np.array(train._bits(P.flatten(final)[0])
-                                     .equal(train._bits(P.flatten(whole)[0])))
+    res["drill/final_eq"] = np.array(bits(final).equal(bits(whole)))
 
 # too few ranks
 try:
@@ -299,10 +306,11 @@ def test_2x1x1_uno_rank0_bitwise_one_card(ranks):
 
 
 def test_2x2x1_uno_mesh_grads_data_mean_then_ring(ranks):
-    """Each pod's data mean (the two ranks' own gradients, averaged as the
-    f32 all_reduce does) within the 1x2x1 bar of that pod's row of the
-    one-process `pod_grads`; every rank's `mesh_grads` bitwise its pod's
-    row of the stacked ring fed those means; the loss the whole batch's."""
+    """Each pod's gradients over its data ranks (the two ranks' own
+    gradients averaged, and the DTensor reduction each rank of the pod
+    holds) within the 1x2x1 bar of that pod's row of the one-process
+    `pod_grads`; every rank's `mesh_grads` bitwise its pod's row of the
+    stacked ring fed those blocks; the loss the whole batch's."""
     cfg = f32_cfg()
     step = TT.make_train_step(cfg, RUN, n_pods=2, device="cpu")
     lvals, stacked = step.pod_grads(f32_state(cfg)["params"],
@@ -315,7 +323,11 @@ def test_2x2x1_uno_mesh_grads_data_mean_then_ring(ranks):
         mean = (a + b) / np.float32(2)
         np.testing.assert_allclose(mean, rows[pod], rtol=1e-5,
                                    atol=1e-5 * float(np.abs(rows[pod]).max()))
-        means.append(mean)
+        pre = ranks[2 * pod]["pd/pre"]
+        assert np.array_equal(pre, ranks[2 * pod + 1]["pd/pre"])
+        np.testing.assert_allclose(pre, rows[pod], rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(rows[pod]).max()))
+        means.append(pre)
     assert not np.array_equal(means[0], means[1])
     ring = TU._pod_ring_psum(torch.tensor(np.stack(means)), RUN, 2).numpy()
     assert not np.array_equal(ring[0], ring[1])   # each pod keeps its row
@@ -363,10 +375,11 @@ def test_refusals():
     with pytest.raises(ValueError, match="process groups"):
         TT.make_train_step(cfg, RUN, device="cpu",
                            mesh=TS.Mesh(NAMES, (2, 1, 1)))
-    with pytest.raises(ValueError, match="9c-ii"):
-        TT.make_train_step(cfg, RUN, device="cpu",
-                           mesh=TS.Mesh(NAMES, (1, 1, 2), group=object()))
+    step = TT.make_train_step(cfg, RUN, device="cpu",
+                              mesh=TS.Mesh(NAMES, (1, 1, 2), group=object()))
+    assert step.pod_mesh.axis_names == ("data", "model")
+    assert step.pod_mesh.shape == (1, 2)
     with pytest.raises(ValueError, match="start 4 ranks with torchrun"):
         train_cli.main(["--device", "cpu", "--reduced", "--mesh", "2x2x1"])
-    with pytest.raises(ValueError, match="ROADMAP item 9c-ii"):
+    with pytest.raises(ValueError, match="start 2 ranks with torchrun"):
         train_cli.main(["--device", "cpu", "--reduced", "--mesh", "1x1x2"])

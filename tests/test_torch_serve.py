@@ -332,9 +332,24 @@ def test_serve_embeddings_mode_matches_reference(monkeypatch):
 
 
 def test_engine_refuses_a_mesh_and_defaults_to_cuda():
-    _, tcfg = _cfgs("smollm")
-    with pytest.raises(ValueError, match="ROADMAP item 9c"):
-        TS.Engine(tcfg, batch=1, max_len=8, mesh=object(), device="cpu")
+    """A mesh engine (here one rank of a fake group: every placement
+    whole) serves the no-mesh engine's tokens; the default device is
+    cuda, which raises without a card."""
+    from repro_torch.launch import mesh as TMesh
+    rcfg, tcfg = _cfgs("smollm")
+    params = _params(rcfg, seed=5)
+    mk = lambda: [TS.Request(i, np.arange(3 + i, dtype=np.int32) % 7, 4)  # noqa: E731
+                  for i in range(2)]
+    plain, meshed = mk(), mk()
+    TS.serve(tcfg, plain, batch=2, max_len=8,
+             params=TP.tree_from_arrays(params, "cpu"), device="cpu")
+    mesh = TMesh.make_fake_mesh((1, 1, 1), ("pod", "data", "model"))
+    try:
+        TS.serve(tcfg, meshed, batch=2, max_len=8, mesh=mesh,
+                 params=TP.tree_from_arrays(params, "cpu"), device="cpu")
+    finally:
+        TMesh.destroy_fake_mesh()
+    assert [r.out for r in meshed] == [r.out for r in plain]
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
     with pytest.raises(RuntimeError, match="CUDA"):

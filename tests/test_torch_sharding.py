@@ -13,7 +13,8 @@ reference's (`repro.sharding`, `repro.launch.mesh`, ...).
     sizes) equals the index of the reference's addressable shard on
     device r, and the block DTensor computes for the port's placements
     on that rank (over a fake process group of 8 ranks);
-  * `use_rules` / `use_mesh` restore the rules, thread-locally.
+  * `use_rules` / `use_mesh` restore the rules; the active mesh is
+    process-wide (autograd's device thread sees it).
 
 The reference side runs in one subprocess with 512 forced host devices
 (the production meshes need them)."""
@@ -287,7 +288,10 @@ def test_no_mesh_and_rules_restore():
         t.start()
         t.join(timeout=10)
         assert not t.is_alive()
-        assert seen == {"mesh": None, "rules": TS.DEFAULT_RULES}
+        # process-wide: the autograd engine's device thread (a CUDA
+        # backward, a checkpoint's recompute) sees the forward's mesh
+        assert seen == {"mesh": mesh,
+                        "rules": {**TS.DEFAULT_RULES, "batch": ("data",)}}
     assert TS.active_mesh() is None and TS._STATE.rules == prev
 
 

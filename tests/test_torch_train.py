@@ -502,7 +502,7 @@ def test_train_cli_baseline_and_uno_on_cpu():
     assert mesh["n_pods"] == 2
     with pytest.raises(ValueError, match="start 4 ranks with torchrun"):
         train_cli.main(["--device", "cpu", "--reduced", "--mesh", "2x2x1"])
-    with pytest.raises(ValueError, match="ROADMAP item 9c"):
+    with pytest.raises(ValueError, match="start 2 ranks with torchrun"):
         train_cli.main(["--device", "cpu", "--reduced", "--mesh", "2"])
 
 
