@@ -99,7 +99,7 @@ Phases, each printing one JSON line:
                grid of benchmarks/fleetsim_sweep.py:534-573 through
                `fault_sweep` (2 fail times x down / burst x a static and
                an adaptive EC policy, 100k inter flows a cell: 8 cells,
-               800k flows, 4,000 + 1,000 epochs; every output finite,
+               800k flows, 2,000 + 500 epochs; every output finite,
                util > 0; ms/epoch, cell- and flow-epochs/s, device
                kernels, busy and idle per epoch, threefry2x32 calls per
                epoch, peak memory), K1 and K2 flat held at its
@@ -170,14 +170,23 @@ Phases, each printing one JSON line:
  14. validate — (run after phase 12) the fluid halves of two
                `fleetsim.validate` comparisons, the 2-flow dumbbell of
                `compare_steady_state(1, 1)` and the k=4 cross-pod incast
-               of `compare_fat_tree_steady_state()`, through
-               `fluid_scenario_rates` on the card (backend auto: the flat
-               K1 / K2) and on the CPU, 5,000 + 500 epochs each: rates
-               within 1e-5 x the link rate (the fat tree: or 4 x the
-               card's divergence between its kernel and plain backends),
-               ms per epoch on each device, the kernels launched; K1 /
-               K2 flat held at each layout as in phase 3
-               (`…@validate_<case>`);
+               of `compare_fat_tree_steady_state()`, on the card
+               (backend auto: the flat K1 / K2) and on the CPU, 2,000 +
+               500 epochs each: rates within 1e-5 x the link rate (the
+               fat tree: or 4 x the card's divergence between its kernel
+               and plain backends), ms per epoch on each device, the
+               kernels launched.  The packet halves run on the port's
+               netsim in a child process started before phase 2 that
+               imports no torch (`packet_halves`: host seconds, events):
+               the 2-flow rates equal the reference's, pinned in
+               `VALIDATE_2FLOW_NETSIM`, bit for bit, and the 2-flow
+               comparison's error and utilizations are recorded (no
+               bar at this depth); then the fault acceptance whole at
+               the reference's depth, `compare_fault_recovery()`: packet
+               rates over [45, 70) ms equal to `VALIDATE_FAULT_NETSIM`,
+               3,214 + 1,786 fluid epochs on the card, agg_rel_err <
+               0.10.  K1 / K2 flat held at each of the three layouts as
+               in phase 3 (`…@validate_<case>`);
  15. serve — (run after phase 13) smollm-135m served at full width
                (seeded bf16 weights, TF32 off) through
                `launch.serve.serve`: the reference CLI's default mix
@@ -290,6 +299,7 @@ to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import atexit
 import json
 import math
 import pathlib
@@ -347,7 +357,7 @@ PRNG_DRAW = 100_003
 SWEEP_FAULT = dict(fault_kinds=("down", "burst"),
                    ec_policies=(((8, 2),), ((8, 1), (8, 2), (8, 4))),
                    fault_rtts=5.0, n_inter=100_000)
-SWEEP_WARM, SWEEP_MEAS = 4_000, 1_000
+SWEEP_WARM, SWEEP_MEAS = 2_000, 500    # cut from 4,000 + 1,000 (time)
 SWEEP_DT = 14_000.0          # the dumbbell's epoch, its intra RTT (ns)
 SWEEP_AGREE_FAILS = (50, 200)            # fail epochs
 SWEEP_AGREE_RTTS = 1.0                   # 143-epoch fault windows
@@ -383,8 +393,20 @@ RESULTS: dict = {}
 PATHS: dict = {}            # path name -> its launch counts
 DRAWS: dict = {}            # path name -> its threefry2x32 calls
 # phase 14: the fluid halves of two fleetsim.validate comparisons
-VALIDATE_WARM, VALIDATE_MEAS = 5_000, 500
+VALIDATE_WARM, VALIDATE_MEAS = 2_000, 500  # cut from 5,000 + 500 (time)
 VALIDATE_ATOL = 1e-5        # x the link rate: the dumbbell bar
+# ... and the packet halves of the 2-flow comparison and of the fault
+# acceptance, run by the port's netsim in a child process started before
+# the build.  Their per-flow rates as the reference's netsim gives them
+# (tests/test_torch_validate_accept.py holds both packages to these)
+VALIDATE_2FLOW_NETSIM = ("0x1.a8b54eba30a14p+2", "0x1.229869a71bf18p+2")
+VALIDATE_FAULT_NETSIM = (
+    "0x1.41b3ff766d44ap+0", "0x1.5b5f4c40cb4c4p+0", "0x1.52fbd07070558p+0",
+    "0x1.395083a6124dep-1", "0x1.525ac0c0cfe96p+0", "0x1.f7b1a7d84bb10p+0",
+    "0x1.bec6faa5ce056p+0", "0x1.5a07b352a8438p-1")
+VALIDATE_FAULT_BAR = 0.10   # agg_rel_err, tests/test_faults.py:386-391
+PACKET_OUT = ROOT / "chiprun_out" / "validate_packet.json"
+PACKET_WAIT_S = 300
 # phase 15: smollm-135m serving at full width, seeded bf16 weights
 SERVE_ARCH = "smollm-135m"
 SERVE_MIXES = {             # the reference CLI's defaults; 8 x 1,024 + 128
@@ -2492,7 +2514,7 @@ def progress(what: str, rec: dict):
     stdout, so that a run that fails a later check still shows it."""
     keys = ("ms_per_step", "tokens_per_s", "peak_mem_bytes", "sync_ms",
             "max_loss_diff", "param_diff_after_step1", "held_loss",
-            "losses", "wall_ms",
+            "losses", "wall_ms", "agg_rel_err",
             "device_kernels", "device_busy_ms_per_call",
             "busy_ms_by_kind", "bound_ms", "roofline_fraction",
             "counted_peak_bytes", "card_counted_peak_bytes",
@@ -2737,23 +2759,128 @@ def _cpu_threads(n: int):
     return ctx()
 
 
-def validate_phase(dev, card):
+def _packet_cases() -> dict:
+    """Phase 14's packet runs: case -> (spec, horizon, t0), the specs of
+    `compare_steady_state(1, 1)` and `compare_fault_recovery()` built from
+    the scenario layer alone (no torch)."""
+    from repro_torch.scenarios import FaultSpec, LbSpec, dumbbell_scenario
+    return {
+        "dumbbell_2flow": (dumbbell_scenario(
+            1, 1, multipath=True, seed=1,
+            inter_lb=LbSpec(kind="rps", n_subflows=8)), 45e6, 15e6),
+        "fault": (dumbbell_scenario(
+            0, 8, multipath=True, n_wan=4,
+            inter_lb=LbSpec(kind="unolb", n_subflows=4),
+            faults=(FaultSpec(link="wan0", kind="down", t_start=4e6),),
+            seed=1), 70e6, 45e6),
+    }
+
+
+def packet_halves(out: str) -> None:
+    """The packet halves of phase 14 on the port's netsim (plain Python on
+    the host), in a process that imports no torch: per case the per-flow
+    rates (hex), the spec's fingerprint, the host seconds, the events
+    simulated and the simulated span; JSON into `out`."""
+    t_start = time.perf_counter()
+    from repro_torch.scenarios import netsim_scenario_rates, spec_fingerprint
+    res = {}
+    for case, (spec, horizon, t0) in _packet_cases().items():
+        info = {}
+        t = time.perf_counter()
+        rates = netsim_scenario_rates(spec, horizon=horizon, t0=t0,
+                                      info=info)
+        host_s = time.perf_counter() - t
+        res[case] = dict(
+            rates=[float(x).hex() for x in rates],
+            fingerprint=spec_fingerprint(spec), host_s=host_s,
+            events=info["events"], sim_ms=horizon / 1e6,
+            t0_ms=t0 / 1e6, events_per_s=info["events"] / host_s,
+            host_s_per_sim_ms=host_s / (horizon / 1e6))
+    res["imported"] = sorted(m for m in ("torch", "jax", "repro")
+                             if m in sys.modules)
+    res["wall_s"] = time.perf_counter() - t_start
+    pathlib.Path(out).write_text(json.dumps(res))
+
+
+def _kill(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_packet_halves():
+    """`packet_halves` in a child process that sees no card, started
+    before the build so that it overlaps it (killed at exit if still
+    running); returns (process, log, start time)."""
+    import os
+    PACKET_OUT.parent.mkdir(parents=True, exist_ok=True)
+    if PACKET_OUT.exists():
+        PACKET_OUT.unlink()
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    log = open(PACKET_OUT.with_suffix(".log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"packet_halves({str(PACKET_OUT)!r})"],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(_kill, proc)
+    return proc, log, time.perf_counter()
+
+
+def wait_packet_halves(packet) -> dict:
+    """The child's results (`wall_s`: its own, imports included)."""
+    proc, log, t_start = packet
+    try:
+        rc = proc.wait(timeout=max(1.0, PACKET_WAIT_S
+                                   - (time.perf_counter() - t_start)))
+    finally:
+        _kill(proc)
+        log.close()
+    check(rc == 0, f"packet halves exited {rc} "
+          "(chiprun_out/validate_packet.log)")
+    out = json.loads(PACKET_OUT.read_text())
+    check(not out["imported"], f"packet child imported {out['imported']}")
+    return out
+
+
+def validate_phase(dev, card, packet):
     """The fluid halves of `compare_steady_state(1, 1)` (the 2-flow
     dumbbell) and `compare_fat_tree_steady_state()` (k=4 cross-pod
-    incast) through `fleetsim.validate.fluid_scenario_rates` on the card
-    (backend auto: the flat kernels) and on the CPU at the same depth:
-    per-flow rates within 1e-5 x the link rate on the dumbbell; on the
-    fat tree within max(1e-5 x the rate, 4 x the card's own divergence
-    between its kernel and plain backends).  K1 / K2 flat are held
-    against their plain versions at each layout (`…@validate_<case>`).
-    Returns those kernel records."""
+    incast) through `fleetsim.validate` on the card (backend auto: the
+    flat kernels) and on the CPU at the same depth: per-flow rates within
+    1e-5 x the link rate on the dumbbell; on the fat tree within max(1e-5
+    x the rate, 4 x the card's own divergence between its kernel and
+    plain backends).  The packet halves come from `packet` (the child
+    of `start_packet_halves`): the 2-flow rates equal
+    `VALIDATE_2FLOW_NETSIM` bit for bit, and the 2-flow comparison's
+    error and utilizations are recorded (no bar: the fluid half is not
+    at its 220,000-epoch depth).  Then the fault acceptance whole at the
+    reference's depth: the port's packet rates over [45, 70) ms (equal to
+    `VALIDATE_FAULT_NETSIM`), the fluid half's 3,214 + 1,786 epochs on the
+    card, `agg_rel_err` < 0.10.  K1 / K2 flat are held against their
+    plain versions at each layout (`…@validate_<case>`).  Returns those
+    kernel records."""
     import numpy as np
     import torch
     from repro_torch.fleetsim import links as L
     from repro_torch.fleetsim import validate as V
-    from repro_torch.scenarios import to_fleetsim
+    from repro_torch.scenarios import spec_fingerprint, to_fleetsim
 
     t_phase = time.perf_counter()
+    pk = wait_packet_halves(packet)
+    for case, spec in (("dumbbell_2flow", V.steady_state_spec(1, 1)),
+                       ("fault", V.fault_spec())):
+        check(pk[case]["fingerprint"] == spec_fingerprint(spec),
+              f"validate {case}: the packet child's spec differs")
+    check(tuple(pk["dumbbell_2flow"]["rates"]) == VALIDATE_2FLOW_NETSIM,
+          f"validate: 2-flow packet rates {pk['dumbbell_2flow']['rates']} "
+          "differ from the reference's")
+    check(tuple(pk["fault"]["rates"]) == VALIDATE_FAULT_NETSIM,
+          f"validate: fault packet rates {pk['fault']['rates']} differ "
+          "from the reference's")
+    ns = {case: np.array([float.fromhex(h) for h in pk[case]["rates"]])
+          for case in ("dumbbell_2flow", "fault")}
+
     depth = dict(n_warm=VALIDATE_WARM, n_meas=VALIDATE_MEAS)
     epochs = VALIDATE_WARM + VALIDATE_MEAS
     records, runs = [], {}
@@ -2767,8 +2894,13 @@ def validate_phase(dev, card):
         records += recs
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        card_rates = drive(path, lambda: V.fluid_scenario_rates(
-            spec, device=dev, **depth))
+        if case == "dumbbell_2flow":
+            cmp = drive(path, lambda: V.compare_steady_state(
+                1, 1, netsim=ns[case], device=dev, **depth))
+            card_rates = cmp["fluid"]
+        else:
+            card_rates = drive(path, lambda: V.fluid_scenario_rates(
+                spec, device=dev, **depth))
         card_s = time.perf_counter() - t0
         with _cpu_threads(1):
             t0 = time.perf_counter()
@@ -2798,9 +2930,50 @@ def validate_phase(dev, card):
             rel_err_card_vs_cpu=err, backend_noise=noise, tol=tol,
             util_fluid=float(card_rates.sum() / spec.rate),
             launches=PATHS[path])
+        if case == "dumbbell_2flow":
+            runs[case]["compare"] = dict(
+                netsim=cmp["netsim"].tolist(), fluid=cmp["fluid"].tolist(),
+                max_rel_err=cmp["max_rel_err"],
+                util_netsim=cmp["util_netsim"],
+                util_fluid=cmp["util_fluid"])
         progress(f"validate {case}", dict(wall_ms=card_s * 1e3))
+
+    # ---- the fault acceptance, whole, at the reference's depth
+    spec = V.fault_spec()
+    path = validate_path("fault")
+    fs = to_fleetsim(spec, device=dev)
+    backend = L._resolve_backend(fs.net, "auto")
+    check(backend == "cuda", f"validate fault: auto -> {backend}")
+    records += kernel_phase(fs.net, dev, path, tag="@validate_fault")[0]
+    n_warm, n_meas = V.fault_window(spec, 45e6, 70e6, dt=float(fs.net.dt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = drive(path, lambda: V.compare_fault_recovery(
+        netsim=ns["fault"], device=dev))
+    card_s = time.perf_counter() - t0
+    check(bool(np.isfinite(res["fluid"]).all())
+          and np.isfinite(res["agg_fluid"]) and res["agg_netsim"] > 0,
+          "validate fault: aggregates not finite and positive")
+    check(res["agg_rel_err"] < VALIDATE_FAULT_BAR,
+          f"validate fault: agg_rel_err {res['agg_rel_err']} >= "
+          f"{VALIDATE_FAULT_BAR}")
+    runs["fault"] = dict(
+        n_flows=spec.n_flows, n_links=fs.net.n_links, backend=backend,
+        n_warm=n_warm, n_meas=n_meas, card_s=card_s,
+        card_ms_per_epoch=card_s / (n_warm + n_meas) * 1e3,
+        agg_netsim=res["agg_netsim"], agg_fluid=res["agg_fluid"],
+        agg_rel_err=res["agg_rel_err"], bar=VALIDATE_FAULT_BAR,
+        util_netsim=res["util_netsim"], util_fluid=res["util_fluid"],
+        netsim=res["netsim"].tolist(), fluid=res["fluid"].tolist(),
+        launches=PATHS[path])
+    progress("validate fault", dict(wall_ms=card_s * 1e3,
+                                    agg_rel_err=res["agg_rel_err"]))
+    packet_out = {case: {k: v for k, v in pk[case].items()
+                         if k != "fingerprint"}
+                  for case in ("dumbbell_2flow", "fault")}
     emit("validate", **card, n_warm=VALIDATE_WARM, n_meas=VALIDATE_MEAS,
-         runs=runs, seconds=time.perf_counter() - t_phase)
+         runs=runs, packet=dict(**packet_out, wall_s=pk["wall_s"]),
+         seconds=time.perf_counter() - t_phase)
     return records
 
 
@@ -3612,6 +3785,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.scenarios import fat_tree_spec, to_fleetsim
 
+    packet = start_packet_halves()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3655,7 +3829,7 @@ def main() -> int:
     records += sharded_grid_phase(fs, dev, card)
     del fs, fs_mp
     service_phase(dev, card, records)
-    records += validate_phase(dev, card)
+    records += validate_phase(dev, card, packet)
     uno_cfg = get_config(UNO_ARCH)
     uno_records, n_patterns = unorc_kernel_phase(dev, uno_cfg)
     emit("unorc_kernels", records=uno_records, erasure_patterns=n_patterns)

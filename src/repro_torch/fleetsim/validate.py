@@ -1,19 +1,23 @@
-"""The fluid halves of the fluid-vs-packet cross-validation: the port of
-``repro.fleetsim.validate``.
+"""Cross-validation of the fluid model against the packet simulator: the
+port of ``repro.fleetsim.validate``.
 
-The reference compiles ONE scenario spec to both simulators and compares
-their steady-state per-flow goodput positionally (the spec fixes the
-flow order).  The packet simulator stays in the reference, so here the
-packet numbers come in as arguments: the per-flow goodput (bytes/ns,
-spec flow order, the mean over the packet run's measurement window) and,
-where a comparison reports it, the retransmit fraction.  This module
-builds the same specs and runs the fluid side on the port:
+ONE scenario spec compiles to both simulators and their steady-state
+per-flow goodput is compared positionally (the spec fixes the flow
+order).  The packet half runs the port's packet simulator
+(`repro_torch.netsim`, plain Python on the host: a run is bitwise the
+reference's); the fluid half runs the port's fleet model on `device`
+(cuda unless the caller passes "cpu"):
 
   * spec builders, one per comparison, with the reference's `compare_*`
     arguments and defaults (`steady_state_spec`, `multipath_spec`,
     `recovery_spec`, `fault_spec`, `adaptive_ec_spec` and
     `adaptive_ec_packet_spec`, `fat_tree_steady_spec`,
     `multi_dc_steady_spec`);
+  * the packet halves (from `scenarios.compile_netsim`, which imports no
+    torch): `netsim_scenario_rates` (the per-flow mean goodput of the ACK
+    trace over [t0, horizon)) and `netsim_recovery_rates` (the same plus
+    the window's retransmit fraction, sum(n_retx) / sum(n_sent) after t0:
+    the recovery and adaptive-EC runs);
   * the fluid halves: `fluid_scenario_rates` (a warm-up, then the mean
     goodput of the measurement window), `fluid_recovery` (the same with
     the reliability counters of the window), `fluid_fault_recovery` (the
@@ -23,25 +27,20 @@ builds the same specs and runs the fluid side on the port:
   * the result dicts with the reference's keys and formulas
     (`scenario_result`, `recovery_result`, `fault_result`,
     `adaptive_ec_result`);
-  * `compare_*`, each spec + fluid half + packet numbers -> the
-    reference's dict.  `compare_adaptive_ec` is two-stage as in the
-    reference: the fluid ladder settles first, then `replay(spec)` (the
-    caller's packet run at the settled rung's fixed geometry) returns
-    the packet numbers.
+  * `compare_*`, each spec + packet half + fluid half -> the reference's
+    dict.  The packet numbers may be given (`netsim=`, `retx_netsim=`,
+    `compare_adaptive_ec`'s `replay=`), e.g. from a packet run in another
+    process; by default the comparison runs its packet half itself.
+    `compare_adaptive_ec` is two-stage as in the reference: the fluid
+    ladder settles first, then the packet run replays the settled rung's
+    fixed geometry.
 
-Packet rates from the reference for, e.g., the 2-flow dumbbell (the
-reference builds the equal spec from the same arguments)::
-
-    from repro.fleetsim.validate import netsim_scenario_rates
-    from repro.scenarios import LbSpec, dumbbell_scenario
-    ns = netsim_scenario_rates(dumbbell_scenario(
-        1, 1, multipath=True, seed=1,
-        inter_lb=LbSpec(kind="rps", n_subflows=8)))
-    res = compare_steady_state(1, 1, netsim=ns, device="cpu")
+    res = compare_steady_state(1, 1)                # on the card
+    res = compare_steady_state(1, 1, device="cpu")  # on the CPU
 
 The fluid run is eager, one epoch a step: at the reference's depth
 (220,000 epochs) it takes minutes on a CPU, where the reference's jitted
-scan takes seconds.
+scan takes seconds.  The packet half takes seconds.
 """
 from __future__ import annotations
 
@@ -53,7 +52,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fleetsim import cc as fleet_cc
 from repro_torch.scenarios import (FaultSpec, LbSpec, RelSpec, Scenario,
                                    dumbbell_scenario, fat_tree_spec,
-                                   multi_dc_spec, to_fleetsim)
+                                   multi_dc_spec, netsim_recovery_rates,
+                                   netsim_scenario_rates, to_fleetsim)
 from repro_torch.scenarios.spec import MIB, MS, RATE_100G, US
 
 
@@ -345,90 +345,114 @@ def adaptive_ec_result(spec: Scenario, netsim, retx_netsim: float,
 
 # ------------------------------------------------------------ comparisons
 
-def compare_scenario(spec: Scenario, netsim, *, n_warm: int = 200_000,
-                     n_meas: int = 20_000,
+def compare_scenario(spec: Scenario, netsim=None, *,
+                     horizon: float = 45 * MS, t0: float = 15 * MS,
+                     size: int = 512 * MIB, n_warm: int = 200_000,
+                     n_meas: int = 20_000, lb=None,
                      device: DeviceLike = None) -> dict:
-    """One spec's fluid rates against the packet rates `netsim`."""
+    """Run both compilations of one spec; report per-flow agreement.
+    `netsim`: the packet rates, if already run (`netsim_scenario_rates`
+    with these arguments otherwise)."""
+    if netsim is None:
+        netsim = netsim_scenario_rates(spec, horizon=horizon, t0=t0,
+                                       size=size, lb=lb)
     fm = fluid_scenario_rates(spec, n_warm=n_warm, n_meas=n_meas,
                               device=device)
     return scenario_result(spec, netsim, fm)
 
 
-def compare_steady_state(n_intra: int, n_inter: int, *, netsim,
+def compare_steady_state(n_intra: int, n_inter: int, *, netsim=None,
                          rate: float = RATE_100G,
                          intra_rtt: float = 14 * US,
                          inter_rtt: float = 2 * MS,
+                         horizon: float = 45 * MS, t0: float = 15 * MS,
                          n_warm: int = 200_000, n_meas: int = 20_000,
                          seed: int = 1, device: DeviceLike = None) -> dict:
     """The spray-routing dumbbell acceptance (`steady_state_spec`)."""
     spec = steady_state_spec(n_intra, n_inter, rate=rate,
                              intra_rtt=intra_rtt, inter_rtt=inter_rtt,
                              seed=seed)
-    return compare_scenario(spec, netsim, n_warm=n_warm, n_meas=n_meas,
-                            device=device)
+    return compare_scenario(spec, netsim, horizon=horizon, t0=t0,
+                            n_warm=n_warm, n_meas=n_meas, device=device)
 
 
-def compare_multipath_steady_state(n_intra: int, n_inter: int, *, netsim,
-                                   rate: float = RATE_100G,
+def compare_multipath_steady_state(n_intra: int, n_inter: int, *,
+                                   netsim=None, rate: float = RATE_100G,
                                    intra_rtt: float = 14 * US,
                                    inter_rtt: float = 2 * MS,
                                    n_wan: int = 8, n_bottleneck: int = 1,
+                                   horizon: float = 45 * MS,
+                                   t0: float = 15 * MS,
                                    n_warm: int = 200_000,
                                    n_meas: int = 20_000, seed: int = 1,
                                    device: DeviceLike = None) -> dict:
-    """The multipath acceptance (`multipath_spec`)."""
+    """The multipath acceptance (`multipath_spec`): UnoLB in the packet
+    run, the adaptive split in the fluid one."""
     spec = multipath_spec(n_intra, n_inter, rate=rate, intra_rtt=intra_rtt,
                           inter_rtt=inter_rtt, n_wan=n_wan,
                           n_bottleneck=n_bottleneck, seed=seed)
-    return compare_scenario(spec, netsim, n_warm=n_warm, n_meas=n_meas,
-                            device=device)
+    return compare_scenario(spec, netsim, horizon=horizon, t0=t0,
+                            n_warm=n_warm, n_meas=n_meas, device=device)
 
 
-def compare_recovery_steady_state(n_inter: int = 6, *, netsim,
-                                  retx_netsim: float, ec: tuple = (8, 2),
+def compare_recovery_steady_state(n_inter: int = 6, *, netsim=None,
+                                  retx_netsim: Optional[float] = None,
+                                  ec: tuple = (8, 2),
                                   p_loss: float = 0.02,
                                   qcap: float = 512 * MIB,
                                   rate: float = RATE_100G,
                                   intra_rtt: float = 14 * US,
                                   inter_rtt: float = 2 * MS,
                                   nack_period: Optional[float] = None,
+                                  horizon: float = 60 * MS,
+                                  t0: float = 20 * MS,
+                                  size: int = 512 * MIB,
                                   n_warm: int = 200_000,
                                   n_meas: int = 20_000, seed: int = 1,
                                   device: DeviceLike = None) -> dict:
-    """The loss-recovery acceptance (`recovery_spec`): `netsim` and
-    `retx_netsim` (sum(n_retx) / sum(n_sent) over the packet window)
-    from the packet run of the same spec."""
+    """The loss-recovery acceptance (`recovery_spec`): EC framing and NACK
+    block recovery in the packet run against the fluid reliability
+    machine.  `netsim` and `retx_netsim` (sum(n_retx) / sum(n_sent) over
+    the packet window), if given together, stand for the packet run."""
+    if (netsim is None) != (retx_netsim is None):
+        raise ValueError("give netsim and retx_netsim together, or neither")
     spec = recovery_spec(n_inter, ec=ec, p_loss=p_loss, qcap=qcap,
                          rate=rate, intra_rtt=intra_rtt,
                          inter_rtt=inter_rtt, nack_period=nack_period,
                          seed=seed)
+    if netsim is None:
+        netsim, retx_netsim = netsim_recovery_rates(spec, horizon=horizon,
+                                                    t0=t0, size=size)
     fluid = fluid_recovery(spec, n_warm=n_warm, n_meas=n_meas,
                            device=device)
     return recovery_result(spec, netsim, retx_netsim, fluid)
 
 
-def compare_fault_recovery(n_inter: int = 8, *, netsim, n_wan: int = 4,
-                           fail_link: str = "wan0", t_fail: float = 4 * MS,
+def compare_fault_recovery(n_inter: int = 8, *, netsim=None,
+                           n_wan: int = 4, fail_link: str = "wan0",
+                           t_fail: float = 4 * MS,
                            rate: float = RATE_100G,
                            intra_rtt: float = 14 * US,
                            inter_rtt: float = 2 * MS,
                            horizon: float = 70 * MS, t0: float = 45 * MS,
                            n_meas: Optional[int] = None, seed: int = 1,
                            device: DeviceLike = None) -> dict:
-    """The fault acceptance (`fault_spec`): `netsim` over [t0, horizon)
-    of the packet run; the fluid window is the same span in epochs."""
+    """The fault acceptance (`fault_spec`): the packet rates over [t0,
+    horizon); the fluid window is the same span in epochs."""
     if not t_fail < t0:
         raise ValueError("t_fail must precede the measurement window t0")
     spec = fault_spec(n_inter, n_wan=n_wan, fail_link=fail_link,
                       t_fail=t_fail, rate=rate, intra_rtt=intra_rtt,
                       inter_rtt=inter_rtt, seed=seed)
+    if netsim is None:
+        netsim = netsim_scenario_rates(spec, horizon=horizon, t0=t0)
     fluid = fluid_fault_recovery(spec, t0=t0, horizon=horizon,
                                  n_meas=n_meas, device=device)
     return fault_result(spec, netsim, fluid["fluid"])
 
 
 def compare_adaptive_ec(p_loss: float = 0.02, *,
-                        replay: Callable[[Scenario], tuple],
+                        replay: Optional[Callable[[Scenario], tuple]] = None,
                         ladder: tuple = ((8, 1), (8, 2), (8, 4)),
                         ladder_up: Optional[tuple] = None,
                         ladder_down: Optional[tuple] = None,
@@ -437,12 +461,15 @@ def compare_adaptive_ec(p_loss: float = 0.02, *,
                         intra_rtt: float = 14 * US,
                         inter_rtt: float = 2 * MS,
                         nack_period: Optional[float] = None,
+                        horizon: float = 60 * MS, t0: float = 20 * MS,
+                        size: int = 512 * MIB,
                         n_warm: int = 200_000, n_meas: int = 20_000,
                         seed: int = 1, device: DeviceLike = None) -> dict:
     """The adaptive-EC acceptance, two-stage: the fluid ladder settles on
-    a rung (`adaptive_ec_spec`), then `replay(spec)` runs the packet side
-    on `adaptive_ec_packet_spec` at that rung's fixed geometry and
-    returns (per-flow rates, retransmit fraction)."""
+    a rung (`adaptive_ec_spec`), then the packet run replays
+    `adaptive_ec_packet_spec` at that rung's fixed geometry.  `replay`
+    (spec -> (per-flow rates, retransmit fraction)) stands for that run;
+    by default it is `netsim_recovery_rates` over [t0, horizon)."""
     spec = adaptive_ec_spec(p_loss, ladder=ladder, ladder_up=ladder_up,
                             ladder_down=ladder_down, n_inter=n_inter,
                             qcap=qcap, rate=rate, intra_rtt=intra_rtt,
@@ -450,6 +477,10 @@ def compare_adaptive_ec(p_loss: float = 0.02, *,
                             seed=seed)
     fluid = fluid_adaptive_ec(spec, n_warm=n_warm, n_meas=n_meas,
                               device=device)
+    if replay is None:
+        def replay(s):
+            return netsim_recovery_rates(s, horizon=horizon, t0=t0,
+                                         size=size)
     netsim, retx_netsim = replay(adaptive_ec_packet_spec(
         p_loss, fluid["rung_geometry"], n_inter=n_inter, qcap=qcap,
         rate=rate, intra_rtt=intra_rtt, inter_rtt=inter_rtt,
@@ -457,11 +488,13 @@ def compare_adaptive_ec(p_loss: float = 0.02, *,
     return adaptive_ec_result(spec, netsim, retx_netsim, fluid)
 
 
-def compare_fat_tree_steady_state(k: int = 4, *, netsim,
+def compare_fat_tree_steady_state(k: int = 4, *, netsim=None,
                                   n_intra_pod: int = 0, n_cross_pod: int = 6,
                                   n_inter: int = 0, n_wan: int = 4,
                                   n_paths: int = 4,
                                   workload: str = "incast",
+                                  horizon: float = 45 * MS,
+                                  t0: float = 15 * MS,
                                   n_warm: int = 200_000,
                                   n_meas: int = 20_000, seed: int = 1,
                                   device: DeviceLike = None) -> dict:
@@ -470,16 +503,19 @@ def compare_fat_tree_steady_state(k: int = 4, *, netsim,
                                 n_cross_pod=n_cross_pod, n_inter=n_inter,
                                 n_wan=n_wan, n_paths=n_paths,
                                 workload=workload, seed=seed)
-    return compare_scenario(spec, netsim, n_warm=n_warm, n_meas=n_meas,
-                            device=device)
+    return compare_scenario(spec, netsim, horizon=horizon, t0=t0,
+                            n_warm=n_warm, n_meas=n_meas, device=device)
 
 
-def compare_multi_dc_steady_state(k: int = 4, n_dc: int = 3, *, netsim,
-                                  mesh: str = "ring", oversub: float = 1.0,
+def compare_multi_dc_steady_state(k: int = 4, n_dc: int = 3, *,
+                                  netsim=None, mesh: str = "ring",
+                                  oversub: float = 1.0,
                                   n_intra_pod: int = 0, n_cross_pod: int = 6,
                                   n_inter: int = 0, n_wan: int = 4,
                                   n_paths: int = 4,
                                   workload: str = "incast",
+                                  horizon: float = 45 * MS,
+                                  t0: float = 15 * MS,
                                   n_warm: int = 200_000,
                                   n_meas: int = 20_000, seed: int = 1,
                                   device: DeviceLike = None) -> dict:
@@ -489,5 +525,5 @@ def compare_multi_dc_steady_state(k: int = 4, n_dc: int = 3, *, netsim,
                                 n_cross_pod=n_cross_pod, n_inter=n_inter,
                                 n_wan=n_wan, n_paths=n_paths,
                                 workload=workload, seed=seed)
-    return compare_scenario(spec, netsim, n_warm=n_warm, n_meas=n_meas,
-                            device=device)
+    return compare_scenario(spec, netsim, horizon=horizon, t0=t0,
+                            n_warm=n_warm, n_meas=n_meas, device=device)

@@ -23,7 +23,7 @@ import numpy as np
 from repro_torch.scenarios.spec import (ChurnSpec, FlowGroup, LbSpec,
                                         LinkSpec, MIB, MS, RATE_100G,
                                         Scenario, US)
-from repro_torch.scenarios.topology import TwoDCFatTree
+from repro_torch.netsim.topology import TwoDCFatTree
 
 # locality tiers (LinkSpec.tier): lower = more local to one flow group
 TIER_EDGE, TIER_AGG, TIER_CORE, TIER_WAN = 0, 1, 2, 3

@@ -32,7 +32,7 @@ from repro_torch.scenarios.fat_tree import _split_counts, link_tier_from_name
 from repro_torch.scenarios.spec import (ChurnSpec, FlowGroup, LbSpec,
                                         LinkSpec, MIB, MS, RATE_100G,
                                         Scenario, US)
-from repro_torch.scenarios.topology import MultiDCFatTree
+from repro_torch.netsim.topology import MultiDCFatTree
 
 MULTI_DC_WORKLOADS = ("hotcold", "incast")
 MESHES = ("ring", "full", "hubspoke")

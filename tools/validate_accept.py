@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """The fluid-vs-packet acceptances at the reference's full depth on the
-port: the reference's packet simulator on the reference's spec, the
-port's fluid half (`repro_torch.fleetsim.validate`) on the equal port
-spec, held at the reference's own bars.
+port: a packet run of the case's spec, the port's fluid half
+(`repro_torch.fleetsim.validate`) on `--device`, held at the reference's
+own bars.
 
-    PYTHONPATH=src python tools/validate_accept.py CASE [--device cpu]
+    PYTHONPATH=src python tools/validate_accept.py CASE [--device cuda]
+        [--packet port|reference]
 
 CASE is one of steady_2flow, steady_8flow, multipath, recovery, fault,
 adaptive_ec, fat_tree, multi_dc (the reference's acceptance tests:
 tests/test_fleetsim.py:264-290, tests/test_reliability.py:317-331,
 tests/test_faults.py:386-407, tests/test_fat_tree_scenarios.py:272-273,
-tests/test_multi_dc.py:255-257).  Prints one JSON line: the case, pass
-or fail with each check, the numbers the checks read, and the seconds of
-the packet and the fluid side.  Exits 1 if a check fails.  Imports the
-reference (the packet side), so it runs where JAX is installed; the
-port's fluid run is eager, minutes on a CPU at this depth.
+tests/test_multi_dc.py:255-257).  `--packet port` (the default) runs the
+packet half on the port's netsim and imports nothing of the reference,
+so it runs on the card machine; `--packet reference` runs the
+reference's netsim on the equal reference spec (where JAX is installed;
+the two give the same bits).  Prints one JSON line: the case, pass or
+fail with each check, the numbers the checks read, and the seconds of
+the packet (host) and the fluid side.  Exits 1 if a check fails.  The
+port's fluid run is eager: minutes on a CPU at this depth.
 """
 from __future__ import annotations
 
@@ -45,10 +49,10 @@ def to_reference(obj):
     return obj
 
 
-def packet_run(spec, horizon, t0, size=512 * 1024 * 1024):
-    """The reference's inline packet run (recovery / adaptive EC):
-    per-flow goodput over [t0, horizon) and sum(n_retx) / sum(n_sent)
-    after t0."""
+def reference_recovery_rates(spec, horizon, t0, size=512 * 1024 * 1024):
+    """The reference's inline packet run (recovery / adaptive EC) on the
+    equal reference spec: per-flow goodput over [t0, horizon) and
+    sum(n_retx) / sum(n_sent) after t0."""
     from repro.scenarios import spawn_backlogged, to_netsim
     net = to_netsim(to_reference(spec))
     flows = spawn_backlogged(net, cc_scheme="uno", size=size)
@@ -66,6 +70,24 @@ def packet_run(spec, horizon, t0, size=512 * 1024 * 1024):
     return ns, (sum(f.n_retx for f in flows) - snap["retx"]) / max(d_sent, 1)
 
 
+def packet_side(kind: str):
+    """(rates(spec, horizon, t0), recovery(spec, horizon, t0)) of the
+    `kind` packet simulator ("port" or "reference")."""
+    if kind == "port":
+        from repro_torch.scenarios import (netsim_recovery_rates,
+                                           netsim_scenario_rates)
+        return ((lambda spec, horizon, t0: netsim_scenario_rates(
+                    spec, horizon=horizon, t0=t0)),
+                (lambda spec, horizon, t0: netsim_recovery_rates(
+                    spec, horizon=horizon, t0=t0)))
+    if kind == "reference":
+        from repro.fleetsim.validate import netsim_scenario_rates
+        return ((lambda spec, horizon, t0: netsim_scenario_rates(
+                    to_reference(spec), horizon=horizon, t0=t0)),
+                reference_recovery_rates)
+    raise ValueError(f"unknown packet simulator {kind!r}")
+
+
 def _binomial_split(k, r, q):
     """tests/test_reliability.py's closed form: the parity-recovered and
     NACKed fractions of an RS(k, r) window at loss q."""
@@ -75,18 +97,23 @@ def _binomial_split(k, r, q):
     return rec_w * k / n ** 2, (n * q - rec_w) * k / n ** 2
 
 
-def run(case: str, device: str) -> dict:
-    from repro.fleetsim.validate import netsim_scenario_rates
+def run(case: str, device: str, packet_kind: str = "port") -> dict:
     from repro_torch.fleetsim import validate as V
 
     t = {}
+    rates, recovery = packet_side(packet_kind)
 
     def packet(spec, horizon, t0):
         t0_ = time.perf_counter()
-        ns = netsim_scenario_rates(to_reference(spec), horizon=horizon,
-                                   t0=t0)
+        ns = rates(spec, horizon, t0)
         t["packet_s"] = time.perf_counter() - t0_
         return ns
+
+    def packet_run(spec, horizon, t0):
+        t0_ = time.perf_counter()
+        out = recovery(spec, horizon, t0)
+        t["packet_s"] = time.perf_counter() - t0_
+        return out
 
     t_start = time.perf_counter()
     if case in ("steady_2flow", "steady_8flow"):
@@ -109,9 +136,7 @@ def run(case: str, device: str) -> dict:
                                           - res["util_netsim"])
                   <= 0.10 * res["util_netsim"]}
     elif case == "recovery":
-        t0_ = time.perf_counter()
         ns, retx = packet_run(V.recovery_spec(6), 60 * MS, 20 * MS)
-        t["packet_s"] = time.perf_counter() - t0_
         res = V.compare_recovery_steady_state(
             6, netsim=ns, retx_netsim=retx, n_warm=200_000, n_meas=200_000,
             device=device)
@@ -135,10 +160,7 @@ def run(case: str, device: str) -> dict:
                   "agg_rel_err < 0.10": res["agg_rel_err"] < 0.10}
     elif case == "adaptive_ec":
         def replay(spec):
-            t0_ = time.perf_counter()
-            out = packet_run(spec, 60 * MS, 20 * MS)
-            t["packet_s"] = time.perf_counter() - t0_
-            return out
+            return packet_run(spec, 60 * MS, 20 * MS)
 
         res = V.compare_adaptive_ec(0.02, replay=replay, n_warm=120_000,
                                     device=device, **LADDER)
@@ -166,6 +188,7 @@ def run(case: str, device: str) -> dict:
                for k, v in res.items() if k != "rel_err"}
     return dict(case=case, ok=all(checks.values()),
                 checks={k: bool(v) for k, v in checks.items()},
+                packet=packet_kind, device=device,
                 packet_s=t.get("packet_s"),
                 fluid_s=total - t.get("packet_s", 0.0), total_s=total,
                 **numbers)
@@ -175,10 +198,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("case", choices=CASES)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--packet", choices=("port", "reference"),
+                    default="port")
     args = ap.parse_args(argv)
     import torch
     torch.set_num_threads(1)
-    out = run(args.case, args.device)
+    out = run(args.case, args.device, args.packet)
     print(json.dumps(out, default=str), flush=True)
     return 0 if out["ok"] else 1
 
