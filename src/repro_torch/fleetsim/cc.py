@@ -34,6 +34,11 @@ exchange; the sharded runners of `repro_torch.fleetsim.shard` put the
 halo exchange between the halves and share one `draw` per epoch.
 `steady_state_core` is the warm-up + measurement loop both share.
 
+Each phase runs inside a span of `repro_torch.trace` (`fleetsim.epoch`
+around `make_step`'s step; `fleetsim.faults`, `fleetsim.links`,
+`fleetsim.reliability`, `fleetsim.cc`, `fleetsim.churn` in the halves),
+which records nothing unless the recorder is on.
+
 `lax.scan` becomes a Python loop over epochs.  The step branches only on
 Python-level configuration (scheme, which axes are present, single-path)
 and makes no host synchronisation (no `.item()`, no tensor in Python
@@ -53,6 +58,7 @@ from repro_torch.fleetsim import prng
 from repro_torch.fleetsim import reliability as R
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
                                         LbParams, init_state)
+from repro_torch.trace import span, traced
 
 SCHEMES = ("uno", "gemini", "dctcp")
 _FRAC_EPS = 1e-6
@@ -113,6 +119,7 @@ def update_split(split: torch.Tensor, path_frac: torch.Tensor,
     return L.normalize_split(w, mask, lb.w_floor), bad_count
 
 
+@traced("fleetsim.make_step")
 def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
               is_inter: Optional[torch.Tensor] = None,
               lb: Optional[LbParams] = None,
@@ -132,8 +139,11 @@ def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
                                         fault=fault, backend=backend)
 
     def step(state: FleetState):
-        sent, private, tile = send(state, draw(state))
-        return recv(state, sent, L.assemble_load(private, tile, net.n_links))
+        with span("fleetsim.epoch"):
+            sent, private, tile = send(state, draw(state))
+            with span("fleetsim.links"):
+                load = L.assemble_load(private, tile, net.n_links)
+            return recv(state, sent, load)
 
     return step
 
@@ -185,188 +195,201 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
     def draw(state: FleetState) -> EpochDraws:
         cap_scale = p_extra = carry = key = u = None
         if fault is not None:
-            cap_scale, p_extra, carry = F.fault_modulation(
-                fault, state.fault, net.n_links)
+            with span("fleetsim.faults"):
+                cap_scale, p_extra, carry = F.fault_modulation(
+                    fault, state.fault, net.n_links)
         if churn is not None:
-            key, u = prng.split_uniform(state.key, n_draw)
+            with span("fleetsim.churn"):
+                key, u = prng.split_uniform(state.key, n_draw)
         return EpochDraws(cap_scale, p_extra, carry, key, u)
 
     def send(state: FleetState, draws: EpochDraws,
              out: Optional[torch.Tensor] = None):
         net_e, split = net, state.split
         if fault is not None:
-            net_e = F.apply_modulation(net, draws.cap_scale, draws.p_extra)
-            if draws.cap_scale is not None and not single:
-                split = F.degrade_split(net, split, draws.cap_scale, pmask)
+            with span("fleetsim.faults"):
+                net_e = F.apply_modulation(net, draws.cap_scale,
+                                           draws.p_extra)
+                if draws.cap_scale is not None and not single:
+                    split = F.degrade_split(net, split, draws.cap_scale,
+                                            pmask)
         rate = state.active.to(torch.float32) * state.cwnd / params.rtt
         rtx, wire = None, rate
         if rel is not None:   # the retransmit backlog is real wire traffic
-            rtx = R.rtx_rate(rel, state.rel, rate, params.rtt)
-            wire = rate + rtx
-        private, tile = L.scatter_partial(net, wire, split, backend=backend,
-                                          halo=halo, out=out)
+            with span("fleetsim.reliability"):
+                rtx = R.rtx_rate(rel, state.rel, rate, params.rtt)
+                wire = rate + rtx
+        with span("fleetsim.links"):
+            private, tile = L.scatter_partial(net, wire, split,
+                                              backend=backend, halo=halo,
+                                              out=out)
         return Sent(wire, rate, rtx, split, net_e, draws), private, tile
 
     def recv(state: FleetState, sent: Sent, load: torch.Tensor):
         p = params
         split, wire, rtx = sent.split, sent.wire, sent.rtx
         # ---- network: queues, marks, delays -----------------------------
-        le = L.link_physics(sent.net, load, state.q_phys, state.q_phantom,
-                            backend=backend, with_loss=rel is not None)
-        sub_frac = le.sub_frac
-        if single:   # split-weighted sums collapse to one product per flow
-            s1 = split[:, 0]
-            sc = s1 * le.sub_scale[:, 0]
-            inst_frac = s1 * sub_frac[:, 0]
-            inst_delay = s1 * le.sub_delay[:, 0]
-        else:
-            sc = torch.sum(split * le.sub_scale, dim=1)
-            inst_frac = torch.sum(split * sub_frac, dim=1)
-            inst_delay = torch.sum(split * le.sub_delay, dim=1)
-        goodput = wire * sc
+        with span("fleetsim.links"):
+            le = L.link_physics(sent.net, load, state.q_phys,
+                                state.q_phantom, backend=backend,
+                                with_loss=rel is not None)
+            sub_frac = le.sub_frac
+            if single:   # split-weighted sums: one product per flow
+                s1 = split[:, 0]
+                sc = s1 * le.sub_scale[:, 0]
+                inst_frac = s1 * sub_frac[:, 0]
+                inst_delay = s1 * le.sub_delay[:, 0]
+            else:
+                sc = torch.sum(split * le.sub_scale, dim=1)
+                inst_frac = torch.sum(split * sub_frac, dim=1)
+                inst_delay = torch.sum(split * le.sub_delay, dim=1)
+            goodput = wire * sc
         rel_new, nack_fire, recovered = state.rel, None, None
         if rel is not None:
-            lf = s1 * le.sub_loss[:, 0] if single else \
-                torch.sum(split * le.sub_loss, dim=1)
-            rel_new, nack_fire, recovered = R.rel_epoch(
-                rel, state.rel, sent.rate, rtx, wire, lf, net.dt, p.rtt)
-        # feedback lag: first-order filter with time constant = flow RTT
-        frac = state.obs_frac + fb * (inst_frac - state.obs_frac)
-        delay = state.obs_delay + fb * (inst_delay - state.obs_delay)
-        path_frac = state.path_frac if lb is None else \
-            state.path_frac + fb[:, None] * (sub_frac - state.path_frac)
-        acked = goodput * net.dt
+            with span("fleetsim.reliability"):
+                lf = s1 * le.sub_loss[:, 0] if single else \
+                    torch.sum(split * le.sub_loss, dim=1)
+                rel_new, nack_fire, recovered = R.rel_epoch(
+                    rel, state.rel, sent.rate, rtx, wire, lf, net.dt, p.rtt)
+        with span("fleetsim.cc"):
+            # feedback lag: first-order filter with time constant = flow RTT
+            frac = state.obs_frac + fb * (inst_frac - state.obs_frac)
+            delay = state.obs_delay + fb * (inst_delay - state.obs_delay)
+            path_frac = state.path_frac if lb is None else \
+                state.path_frac + fb[:, None] * (sub_frac - state.path_frac)
+            acked = goodput * net.dt
 
-        # ---- window accumulators ----------------------------------------
-        win_acked = state.win_acked + acked
-        win_marked = state.win_marked + frac * acked
-        win_dmin = torch.minimum(state.win_delay_min, delay) \
-            if scheme == "uno" else state.win_delay_min
-        win_dmax = torch.maximum(state.win_delay_max, delay) \
-            if scheme == "gemini" else state.win_delay_max
-        fire = state.cc_countdown <= 1
-        can_md = state.skip <= 0
-        wfrac = win_marked / torch.clamp(win_acked, min=1.0)
-        marked = wfrac > _FRAC_EPS
+            # ---- window accumulators ----------------------------------------
+            win_acked = state.win_acked + acked
+            win_marked = state.win_marked + frac * acked
+            win_dmin = torch.minimum(state.win_delay_min, delay) \
+                if scheme == "uno" else state.win_delay_min
+            win_dmax = torch.maximum(state.win_delay_max, delay) \
+                if scheme == "gemini" else state.win_delay_max
+            fire = state.cc_countdown <= 1
+            can_md = state.skip <= 0
+            wfrac = win_marked / torch.clamp(win_acked, min=1.0)
+            marked = wfrac > _FRAC_EPS
 
-        # ---- additive increase (continuous, on unmarked bytes) ----------
-        ai_gain = p.mtu if scheme == "dctcp" else p.alpha
-        inc = ai_gain * acked * (1.0 - frac) / \
-            torch.clamp(state.cwnd, min=1.0)
-        if scheme == "uno":
-            # fast increase keys off the INSTANTANEOUS mark fraction
-            m_fi = inst_frac > _FRAC_EPS
-            fi_on = state.fi_active & ~m_fi
-            inc = torch.where(fi_on,
-                              torch.maximum(inc, acked * (1.0 - frac)), inc)
-        cwnd = state.cwnd + inc
+            # ---- additive increase (continuous, on unmarked bytes) ----------
+            ai_gain = p.mtu if scheme == "dctcp" else p.alpha
+            inc = ai_gain * acked * (1.0 - frac) / \
+                torch.clamp(state.cwnd, min=1.0)
+            if scheme == "uno":
+                # fast increase keys off the INSTANTANEOUS mark fraction
+                m_fi = inst_frac > _FRAC_EPS
+                fi_on = state.fi_active & ~m_fi
+                inc = torch.where(
+                    fi_on, torch.maximum(inc, acked * (1.0 - frac)), inc)
+            cwnd = state.cwnd + inc
 
-        # ---- window reaction --------------------------------------------
-        ecn_ewma = torch.where(
-            fire, (1.0 - p.ewma_g) * state.ecn_ewma + p.ewma_g * wfrac,
-            state.ecn_ewma)
-        md_scale = state.md_scale
-        if scheme == "uno":                          # Alg 1 OnEpoch
-            gentle = torch.where(
-                win_dmin < p.delay_thresh,
-                gentle_md_scale(state.md_scale, p.gentle_scale,
-                                p.gentle_floor, maximum=torch.maximum),
-                1.0)
-            md_scale = torch.where(fire & marked & can_md, gentle,
-                                   torch.where(fire & ~marked, 1.0,
-                                               state.md_scale))
-            factor = md_factor(ecn_ewma, md_scale, p.k_md, p.bdp, p.md_cap,
-                               minimum=torch.minimum)
-            cwnd = torch.where(fire & marked & can_md,
-                               torch.maximum(cwnd * factor, p.min_cwnd),
-                               cwnd)
-        elif scheme == "gemini":                     # per-own-RTT reaction
-            md = torch.where(marked,
-                             ecn_ewma * md_ecn_gain(p.k_md, p.bdp), 0.0)
-            wan_md = torch.where(
-                is_inter & (win_dmax > p.delay_thresh),
-                0.5 * torch.clamp(win_dmax / p.rtt, max=1.0), 0.0)
-            md = torch.minimum(torch.maximum(md, wan_md), p.md_cap)
-            cwnd = torch.where(fire & (md > 0.0),
-                               torch.maximum(cwnd * (1.0 - md), p.min_cwnd),
-                               cwnd)
-        else:                                        # dctcp: cwnd *= 1 - E/2
-            cwnd = torch.where(fire & marked,
-                               torch.maximum(cwnd * (1.0 - 0.5 * ecn_ewma),
-                                             p.min_cwnd),
-                               cwnd)
+            # ---- window reaction --------------------------------------------
+            ecn_ewma = torch.where(
+                fire, (1.0 - p.ewma_g) * state.ecn_ewma + p.ewma_g * wfrac,
+                state.ecn_ewma)
+            md_scale = state.md_scale
+            if scheme == "uno":                          # Alg 1 OnEpoch
+                gentle = torch.where(
+                    win_dmin < p.delay_thresh,
+                    gentle_md_scale(state.md_scale, p.gentle_scale,
+                                    p.gentle_floor, maximum=torch.maximum),
+                    1.0)
+                md_scale = torch.where(fire & marked & can_md, gentle,
+                                       torch.where(fire & ~marked, 1.0,
+                                                   state.md_scale))
+                factor = md_factor(ecn_ewma, md_scale, p.k_md, p.bdp,
+                                   p.md_cap, minimum=torch.minimum)
+                cwnd = torch.where(fire & marked & can_md,
+                                   torch.maximum(cwnd * factor, p.min_cwnd),
+                                   cwnd)
+            elif scheme == "gemini":                     # per-own-RTT reaction
+                md = torch.where(marked,
+                                 ecn_ewma * md_ecn_gain(p.k_md, p.bdp), 0.0)
+                wan_md = torch.where(
+                    is_inter & (win_dmax > p.delay_thresh),
+                    0.5 * torch.clamp(win_dmax / p.rtt, max=1.0), 0.0)
+                md = torch.minimum(torch.maximum(md, wan_md), p.md_cap)
+                cwnd = torch.where(
+                    fire & (md > 0.0),
+                    torch.maximum(cwnd * (1.0 - md), p.min_cwnd), cwnd)
+            else:                                    # dctcp: cwnd *= 1 - E/2
+                cwnd = torch.where(
+                    fire & marked,
+                    torch.maximum(cwnd * (1.0 - 0.5 * ecn_ewma), p.min_cwnd),
+                    cwnd)
 
-        win_acked = torch.where(fire, 0.0, win_acked)
-        win_marked = torch.where(fire, 0.0, win_marked)
-        if scheme == "uno":
-            win_dmin = torch.where(fire, math.inf, win_dmin)
-        if scheme == "gemini":
-            win_dmax = torch.where(fire, 0.0, win_dmax)
-        cc_countdown = torch.where(fire, p.cc_period,
-                                   state.cc_countdown - 1)
+            win_acked = torch.where(fire, 0.0, win_acked)
+            win_marked = torch.where(fire, 0.0, win_marked)
+            if scheme == "uno":
+                win_dmin = torch.where(fire, math.inf, win_dmin)
+            if scheme == "gemini":
+                win_dmax = torch.where(fire, 0.0, win_dmax)
+            cc_countdown = torch.where(fire, p.cc_period,
+                                       state.cc_countdown - 1)
 
-        # ---- fast-increase bookkeeping (UnoCC only) ---------------------
-        fi_clean = state.fi_clean
-        fi_active = state.fi_active
-        fi_ceiling = state.fi_ceiling
-        if scheme == "uno":
-            fi_active = fi_on
-            fi_clean = torch.where(
-                fire, torch.where(m_fi, 0, state.fi_clean + 1),
-                state.fi_clean).to(torch.int32)
-            engage = (fi_clean >= 3) & (cwnd < 0.7 * fi_ceiling)
-            fi_active = torch.where(fire, ~m_fi & (fi_active | engage),
-                                    fi_active)
-            fi_ceiling = torch.where(
-                fire & m_fi, torch.maximum(cwnd, 4.0 * p.min_cwnd),
-                state.fi_ceiling)
+            # ---- fast-increase bookkeeping (UnoCC only) ---------------------
+            fi_clean = state.fi_clean
+            fi_active = state.fi_active
+            fi_ceiling = state.fi_ceiling
+            if scheme == "uno":
+                fi_active = fi_on
+                fi_clean = torch.where(
+                    fire, torch.where(m_fi, 0, state.fi_clean + 1),
+                    state.fi_clean).to(torch.int32)
+                engage = (fi_clean >= 3) & (cwnd < 0.7 * fi_ceiling)
+                fi_active = torch.where(fire, ~m_fi & (fi_active | engage),
+                                        fi_active)
+                fi_ceiling = torch.where(
+                    fire & m_fi, torch.maximum(cwnd, 4.0 * p.min_cwnd),
+                    state.fi_ceiling)
 
-        # ---- Quick-Adapt (UnoCC only; Alg 1 OnQA) -----------------------
-        qa_acked = state.qa_acked + acked
-        qa_prev = state.qa_prev_acked
-        qa_deficits = state.qa_deficits
-        skip = torch.clamp(state.skip - 1, min=0)
-        qa_countdown = state.qa_countdown - 1
-        if scheme == "uno":
-            tick = state.qa_countdown <= 1
-            deficit = (tick & (state.cwnd >= 4.0 * p.mtu)
-                       & (qa_acked < p.beta * state.cwnd))
-            trigger = deficit & (state.qa_deficits >= 1) & can_md
-            cwnd = torch.where(
-                trigger,
-                torch.maximum(torch.maximum(qa_acked, qa_prev), p.min_cwnd),
-                cwnd)
-            qa_deficits = torch.where(
-                tick, torch.where(deficit & ~trigger,
-                                  state.qa_deficits + 1, 0),
-                state.qa_deficits).to(torch.int32)
-            skip = torch.where(trigger, 2 * p.qa_period, skip)
-            qa_prev = torch.where(tick, qa_acked, qa_prev)
-            qa_acked = torch.where(tick, 0.0, qa_acked)
-            qa_countdown = torch.where(tick, p.qa_period, qa_countdown)
+            # ---- Quick-Adapt (UnoCC only; Alg 1 OnQA) -----------------------
+            qa_acked = state.qa_acked + acked
+            qa_prev = state.qa_prev_acked
+            qa_deficits = state.qa_deficits
+            skip = torch.clamp(state.skip - 1, min=0)
+            qa_countdown = state.qa_countdown - 1
+            if scheme == "uno":
+                tick = state.qa_countdown <= 1
+                deficit = (tick & (state.cwnd >= 4.0 * p.mtu)
+                           & (qa_acked < p.beta * state.cwnd))
+                trigger = deficit & (state.qa_deficits >= 1) & can_md
+                cwnd = torch.where(
+                    trigger, torch.maximum(torch.maximum(qa_acked, qa_prev),
+                                           p.min_cwnd),
+                    cwnd)
+                qa_deficits = torch.where(
+                    tick, torch.where(deficit & ~trigger,
+                                      state.qa_deficits + 1, 0),
+                    state.qa_deficits).to(torch.int32)
+                skip = torch.where(trigger, 2 * p.qa_period, skip)
+                qa_prev = torch.where(tick, qa_acked, qa_prev)
+                qa_acked = torch.where(tick, 0.0, qa_acked)
+                qa_countdown = torch.where(tick, p.qa_period, qa_countdown)
 
-        # ---- reliability: NACK-driven multiplicative decrease -----------
-        # (at most one cut per flow RTT; the post-QA skip suppresses it)
-        if rel is not None:
-            cwnd = torch.where(nack_fire & can_md,
-                               torch.maximum(cwnd * rel.loss_md, p.min_cwnd),
-                               cwnd)
-        cwnd = torch.minimum(torch.maximum(cwnd, p.min_cwnd), p.max_cwnd)
+            # ---- reliability: NACK-driven multiplicative decrease -----------
+            # (at most one cut per flow RTT; the post-QA skip suppresses it)
+            if rel is not None:
+                cwnd = torch.where(
+                    nack_fire & can_md,
+                    torch.maximum(cwnd * rel.loss_md, p.min_cwnd), cwnd)
+            cwnd = torch.minimum(torch.maximum(cwnd, p.min_cwnd), p.max_cwnd)
 
-        # ---- lb axis: adaptive subflow weights --------------------------
-        # the STORED split adapts from this epoch's (degraded) send split
-        # with lb, and stays put without it
-        split_new, bad_count = state.split, state.bad_count
-        if lb is not None:
-            split_new, bad_count = update_split(split, path_frac, bad_count,
-                                                pmask, lb)
-            if rel is None:
-                goodput = goodput * lb.ec_eff   # parity carries no payload
+            # ---- lb axis: adaptive subflow weights --------------------------
+            # the STORED split adapts from this epoch's (degraded) send split
+            # with lb, and stays put without it
+            split_new, bad_count = state.split, state.bad_count
+            if lb is not None:
+                split_new, bad_count = update_split(split, path_frac,
+                                                    bad_count, pmask, lb)
+                if rel is None:
+                    goodput = goodput * lb.ec_eff   # parity carries no payload
         if rel is not None:
             # the dynamic EC split at the flow's current rung: delivered
             # payload, retransmitted data (no parity), parity-recovered data
-            eff = R.effective_eff(rel, state.rel)
-            goodput = goodput * eff + rtx * sc * (1.0 - eff) + recovered
+            with span("fleetsim.reliability"):
+                eff = R.effective_eff(rel, state.rel)
+                goodput = goodput * eff + rtx * sc * (1.0 - eff) + recovered
 
         new = FleetState(
             cwnd=cwnd, ecn_ewma=ecn_ewma, md_scale=md_scale,
@@ -384,15 +407,16 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
 
         # ---- churn: freeze OFF flows, restart fresh on OFF->ON ----------
         if churn is not None:
-            act = state.active
-            u = sent.draws.u if churn_map is None else \
-                torch.index_select(sent.draws.u, 0, churn_map)
-            turn_off = act & churn.churned & (u < p_off)
-            turn_on = ~act & churn.churned & (u < p_on)
-            new = _merge_flow_state(act, new, state)       # OFF: frozen
-            new = _merge_flow_state(~turn_on, new, fresh)  # OFF->ON: fresh
-            new = new._replace(active=(act & ~turn_off) | turn_on,
-                               key=sent.draws.key)
+            with span("fleetsim.churn"):
+                act = state.active
+                u = sent.draws.u if churn_map is None else \
+                    torch.index_select(sent.draws.u, 0, churn_map)
+                turn_off = act & churn.churned & (u < p_off)
+                turn_on = ~act & churn.churned & (u < p_on)
+                new = _merge_flow_state(act, new, state)       # OFF: frozen
+                new = _merge_flow_state(~turn_on, new, fresh)  # OFF->ON
+                new = new._replace(active=(act & ~turn_off) | turn_on,
+                                   key=sent.draws.key)
         return new, goodput
 
     return draw, send, recv

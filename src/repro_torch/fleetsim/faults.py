@@ -29,6 +29,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim import links as L
 from repro_torch.fleetsim import prng
+from repro_torch.trace import traced
 
 # t1 sentinel for events that never clear (fits int32, compares cleanly)
 OPEN_END = 2 ** 31 - 1
@@ -73,6 +74,7 @@ class FaultCarry(NamedTuple):
     key: torch.Tensor      # (2,) int64 PRNG key of the chain transitions
 
 
+@traced("fleetsim.make_schedule")
 def make_schedule(cap_events: Sequence[Tuple] = (),
                   ge_events: Sequence[Tuple] = (),
                   device=None) -> FaultSchedule:

@@ -26,7 +26,8 @@ result carries the keys' batch shape in front (`split` (..., num, 2),
 `jax.vmap` of the same function).  This is plain torch on every device
 (about 160 elementwise kernels a threefry2x32 call, whatever the batch);
 nothing here reads a device value on the host.  `CALLS` counts the
-threefry2x32 evaluations.
+threefry2x32 evaluations, each of which is one `prng.threefry2x32` span
+of `repro_torch.trace`.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.trace import span
 
 _MASK = 0xFFFFFFFF
 _KS_PARITY = 0x1BD11BDA
@@ -69,18 +71,19 @@ def threefry2x32(key: torch.Tensor, x1: torch.Tensor,
     broadcast against the counters); int64 words in [0, 2**32).  Returns
     the two output words."""
     CALLS["threefry2x32"] += 1
-    k1, k2 = key[..., 0], key[..., 1]
-    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
-    x1 = (x1 + k1).bitwise_and_(_MASK)
-    x2 = (x2 + k2).bitwise_and_(_MASK)
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1.add_(x2).bitwise_and_(_MASK)
-            x2 = (x2 << r).bitwise_and_(_MASK).bitwise_or_(x2 >> (32 - r))
-            x2.bitwise_xor_(x1)
-        x1.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
-        x2.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_MASK)
-    return x1, x2
+    with span("prng.threefry2x32"):
+        k1, k2 = key[..., 0], key[..., 1]
+        ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+        x1 = (x1 + k1).bitwise_and_(_MASK)
+        x2 = (x2 + k2).bitwise_and_(_MASK)
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x1.add_(x2).bitwise_and_(_MASK)
+                x2 = (x2 << r).bitwise_and_(_MASK).bitwise_or_(x2 >> (32 - r))
+                x2.bitwise_xor_(x1)
+            x1.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+            x2.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_MASK)
+        return x1, x2
 
 
 def _counters(shape: Sequence[int], device):

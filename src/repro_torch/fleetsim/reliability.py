@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.trace import traced
 
 _EPS = 1e-9
 MAX_R = 16        # parity window cap: coef tables carry MAX_R + 1 pmf terms
@@ -103,6 +104,7 @@ def binom_coef_row(k: int, r: int, device=None) -> torch.Tensor:
                         device=resolve_device(device))
 
 
+@traced("fleetsim.make_rel_params")
 def make_rel_params(n_flows: int, *, ec: Tuple[int, int] = (8, 2),
                     nack_period: int = 1, nack_hold: int = 0,
                     loss_md: float = 0.5, rtx_cap: float = 1.0,

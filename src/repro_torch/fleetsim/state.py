@@ -19,6 +19,7 @@ import torch
 from repro_torch.core.unocc import UnoParams, derived_params
 from repro_torch.device import resolve_device
 from repro_torch.fleetsim import faults, prng, reliability
+from repro_torch.trace import traced
 
 _DEFAULT = UnoParams(bdp=1.0, intra_bdp=1.0, intra_rtt=1.0)  # default fracs
 
@@ -167,6 +168,7 @@ def make_churn_params(n_flows: int, *, mean_on: float, mean_off: float,
         mean_on=mean_on * ones, mean_off=mean_off * ones)
 
 
+@traced("fleetsim.init_state")
 def init_state(params: FleetParams, n_links: int,
                cwnd0: Optional[torch.Tensor] = None, *,
                n_paths: int = 1, split0: Optional[torch.Tensor] = None,

@@ -65,6 +65,7 @@ from repro_torch.fleetsim.faults import FaultCarry, FaultSchedule
 from repro_torch.fleetsim.reliability import LADDER_SHARED, RelParams
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
                                         LbParams, init_state, make_params)
+from repro_torch.trace import traced
 
 US = L.US
 _SUM_CHUNK = 1024
@@ -255,6 +256,7 @@ def _stack_faults(faults, n_links: int) -> FaultSchedule:
         ge_link=(out.ge_link + cell_g * n_links).to(torch.int32))
 
 
+@traced("fleetsim.stack_scenarios")
 def stack_scenarios(scenarios: Sequence, *, layout=None) -> Grid:
     """Stack same-shape scenarios into one `Grid` (module docstring).
 

@@ -7,7 +7,8 @@ ctypes.  The libraries land in ``src/repro_torch/_build/`` (listed in
 changed source rebuilds and an unchanged one is built once per checkout.
 `build_all()` starts one nvcc per missing library, all at once, and waits
 for them.  Nothing is built when this module is imported; `load(name)`
-builds at first use and raises if it cannot.
+builds at first use and raises if it cannot; its first call for a
+library is the span `kernels.load` of `repro_torch.trace`.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+from repro_torch.trace import span
 
 _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = {"fleet": _HERE / "csrc" / "fleet_kernels.cu",
@@ -114,9 +117,10 @@ def load(name: str):
     """The loaded ctypes library of source `name`, building it first if
     needed."""
     if name not in _LIBS:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        for fn, argtypes in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _I
-        _LIBS[name] = lib
+        with span("kernels.load"):
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            for fn, argtypes in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
+            _LIBS[name] = lib
     return _LIBS[name]

@@ -12,7 +12,9 @@ reliability machine (`_compile_rel`), the spec's faults to one
 epoch-indexed schedule (`compile_faults`).  The shard planner
 (`ShardPlan`, `plan_shards`), which groups flows by home link and
 relabels links so each shard owns a contiguous private range, lives here
-too.
+too.  `to_fleetsim` is the span `compile.to_fleetsim` of
+`repro_torch.trace`, its phases `compile.arrays`, `compile.layout`,
+`compile.rel` and `compile.faults`.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from repro_torch.fleetsim.state import (ChurnParams, FleetParams, LbParams,
 from repro_torch.scenarios.fat_tree import link_tiers
 from repro_torch.scenarios.multi_dc import link_dcs
 from repro_torch.scenarios.spec import Scenario
+from repro_torch.trace import span, traced
 
 _ADAPTIVE_KINDS = ("unolb", "plb")
 _NEVER = 2.0          # mark-frac threshold no path can exceed (fracs <= 1)
@@ -62,7 +65,20 @@ def _flow_adaptive(g) -> bool:
 def fleet_arrays(spec: Scenario, device=None):
     """(FluidNet, bdp, rtt, is_inter) — topology + per-flow path constants,
     with the RouteLayout (and PathTable where it compresses) attached."""
-    dev = resolve_device(device)
+    with span("compile.arrays"):
+        net, bdp, rtt, is_inter, routes_np = _flat_arrays(
+            spec, resolve_device(device))
+    # the layout (and the PathTable where it compresses) is compiled once
+    # per scenario from the host copy of the routes
+    with span("compile.layout"):
+        net = net._replace(layout=compute_layout(
+            routes_np, len(spec.links), device=net.cap.device))
+    return net, bdp, rtt, is_inter
+
+
+def _flat_arrays(spec: Scenario, dev):
+    """`fleet_arrays` before the layout, with the host copy of the
+    routes."""
     f32 = dict(dtype=torch.float32, device=dev)
     idx = spec.link_index()
     n_links = len(spec.links)
@@ -113,12 +129,10 @@ def fleet_arrays(spec: Scenario, device=None):
                    dt=torch.tensor(spec.epoch_period_frac * spec.intra_rtt,
                                    **f32),
                    p_loss=p_loss)
-    # the layout (and the PathTable where it compresses) is compiled once
-    # per scenario from the host copy of the routes
-    net = net._replace(layout=compute_layout(routes_np, n_links, device=dev))
-    return net, bdp, rtt, is_inter
+    return net, bdp, rtt, is_inter, routes_np
 
 
+@traced("compile.to_fleetsim")
 def to_fleetsim(spec: Scenario, *, device=None,
                 **make_params_kw) -> FleetScenario:
     """Compile the full fluid scenario onto `device` (default cuda).
@@ -168,11 +182,14 @@ def to_fleetsim(spec: Scenario, *, device=None,
             mean_on=torch.tensor(mean_on, dtype=torch.float32, device=dev),
             mean_off=torch.tensor(mean_off, dtype=torch.float32, device=dev))
 
+    with span("compile.rel"):
+        rel = _compile_rel(spec, net)
+    with span("compile.faults"):
+        fault = compile_faults(spec, net)
     return FleetScenario(net=net, params=params, is_inter=is_inter, lb=lb,
                          churn=churn, seed=spec.seed,
                          link_tier=link_tiers(spec), link_dc=link_dcs(spec),
-                         rel=_compile_rel(spec, net),
-                         fault=compile_faults(spec, net))
+                         rel=rel, fault=fault)
 
 
 def _compile_rel(spec: Scenario, net: FluidNet) -> Optional[RelParams]:
