@@ -113,6 +113,19 @@ Phases, each printing one JSON line:
                and one draw for every cell), its masks and keys after 200
                epochs bitwise those of each cell alone.
 
+ 10b. rel_epoch — (run after phase 10) the reliability kernel
+               (`fleet_cuda.rel_epoch`) at both benchmark cells' shapes:
+               fault_sweep128's 128 x 100k flows with per-cell ladder
+               tables and recovery_sweep64's 64 x 100k with static EC,
+               seeded mid-run states: bitwise `rel_step`'s plain version
+               on the same card inputs, every field of every flow
+               (loss-free flows' recovered bytes exactly 0), the input
+               state unwritten, no host sync, two runs bitwise equal;
+               median CUDA-event time over
+               25 launches beside its byte bound (`rel_epoch_bytes`) and
+               the plain version's; then `fault_sweep` and
+               `recovery_sweep` at those grids for 20 epochs, one launch
+               an epoch (paths `rel:*`);
  11. sharded_grid — (run after phase 10) the sharded scenario grid,
                `run_grid(n_shards=2)`: two cells of the main path's fat
                tree, cell 1 its drain what-if (drain x 0.9; the routes
@@ -366,6 +379,21 @@ SWEEP_CHURN = dict(duty_fracs=(0.3, 1.0), mean_on_rtts=(200.0,),
                    n_flows=100_000)
 SWEEP_CHURN_WARM, SWEEP_CHURN_MEAS = 800, 200
 SWEEP_CHURN_CHECK = 200      # epochs batched vs alone, masks bitwise
+# the reliability kernel at the benchmark cells' shapes: fault_sweep128's
+# grid (8 fail times x 4 fault kinds x 4 EC policies, the static ones
+# padded to the ladder's three rungs: per-cell tables) and
+# recovery_sweep64's (4 overloads x 4 static EC geometries x 4 NACK
+# holdoffs), 100k inter flows a cell, the NACK batch a quarter RTT
+REL_GRIDS = {
+    "fault_sweep128": dict(cells=128, policies=(
+        ((8, 1),) * 3, ((8, 2),) * 3, ((8, 4),) * 3,
+        ((8, 1), (8, 2), (8, 4)))),
+    "recovery_sweep64": dict(cells=64, ecs=((4, 1), (8, 1), (8, 2), (8, 4)),
+                             holds_rtts=(0.0, 0.5, 1.0, 2.0)),
+}
+REL_FLOWS = 100_000          # a cell's inter flows
+REL_INTER_RTT = 2e6          # ns
+REL_RUN_EPOCHS = 20          # epochs of each grid's short run (launch count)
 # sharded grid: the main path's fat tree and its drain what-if
 # (benchmarks/sweep_server.py:122-126) on 2 stacked shards under cell 0's
 # plan lifted to the grid, psum and nbr; the fault grid above through
@@ -1702,6 +1730,186 @@ def sweeps_phase(dev, card):
     del final, rates, alone, cells
     emit("sweeps", **card, fault_grid=fault_grid, fault_grid_agree=agree,
          churn_grid=churn, records=records,
+         seconds=time.perf_counter() - t_phase)
+    return records
+
+
+# ------------------------------------------------------------ rel_epoch
+
+def rel_grid_params(tag: str, dev):
+    """RelParams of a benchmark cell's grid (`REL_GRIDS`), stacked as
+    `sweeps.stack_scenarios` stacks them."""
+    from repro_torch.fleetsim import make_rel_params
+    from repro_torch.fleetsim import sweeps as SW
+    g = REL_GRIDS[tag]
+    period = max(int(round(0.25 * REL_INTER_RTT / SWEEP_DT)), 1)
+    if "policies" in g:
+        pol = g["policies"]
+        rels = [make_rel_params(REL_FLOWS, ladder=pol[b % len(pol)],
+                                nack_period=period, device=dev)
+                for b in range(g["cells"])]
+    else:
+        combos = [(ec, h) for ec in g["ecs"] for h in g["holds_rtts"]]
+        rels = [make_rel_params(
+            REL_FLOWS, ec=combos[b % len(combos)][0], nack_period=period,
+            nack_hold=int(round(combos[b % len(combos)][1] * REL_INTER_RTT
+                                / SWEEP_DT)), device=dev)
+            for b in range(g["cells"])]
+    return SW._stack_rel(rels)
+
+
+def rel_epoch_inputs(rel, dev, seed: int = 30):
+    """A mid-run reliability phase: seeded state and flow inputs for
+    `rel`, a quarter of the flows loss-free, one path."""
+    import torch
+    from repro_torch.fleetsim import reliability as R
+    n = rel.enabled.numel()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand((n, *shape), device=dev,
+                                           generator=gen)
+
+    def i(hi):
+        return torch.randint(0, hi, (n,), device=dev, generator=gen,
+                             dtype=torch.int32)
+    n_rungs = 1 if rel.ladder_k is None else rel.ladder_k.shape[-1]
+    st = R.RelState(
+        pending=u(0, 9e3), backlog=u(0, 5e4), ack_cd=i(40), hold=i(3),
+        md_cd=u(0, 2e6) * (i(4) > 0), rtx_ewma=u(0, 1), lat_ewma=u(0, 3e6),
+        nacks=u(0, 90).round(), rec_bytes=u(0, 1e8), rtx_bytes=u(0, 1e8),
+        wire_bytes=u(0, 1e10), lost_bytes=u(0, 1e8), rung=i(n_rungs),
+        loss_ewma=u(0, 0.06), adapt_cd=u(0, 2e6) * (i(3) > 0))
+    sub_loss = u(0, 0.08, 1) * (i(4) > 0)[:, None]
+    rate = u(0, 12.5)
+    rtt = torch.full((n,), REL_INTER_RTT, device=dev)
+    rtx = R.rtx_rate(rel, st, rate, rtt)
+    dt = torch.tensor(SWEEP_DT, device=dev)
+    return (rel, st, rate, rtx, torch.ones((n, 1), device=dev), sub_loss,
+            u(0.3, 1.0), dt, rtt)
+
+
+def rel_epoch_bytes(rel, n_paths: int) -> int:
+    """The bytes one reliability phase needs, each read or written once:
+    per flow rate, rtx, sc and rtt, split and loss on each path, enabled,
+    the NACK period, holdoff and quantum, the RelState read and written
+    (15 fields with a ladder, 12 without), the cut and the goodput; with
+    a ladder also adapt_on; each flow that reads its own geometry (no
+    ladder, or not adapting) its k, r, eff and coef[1..r]; the ladder
+    tables once."""
+    import torch
+    n = rel.enabled.numel()
+    ladder = rel.ladder_k is not None
+    state = 15 if ladder else 12
+    per_flow = 4 * 4 + 2 * 4 * n_paths + 1 + 3 * 4 + 2 * 4 * state + 1 + 4
+    total = n * (per_flow + (1 if ladder else 0))
+    own = ~rel.adapt_on if ladder else torch.ones_like(rel.enabled)
+    total += 12 * int(own.sum()) + 4 * int(rel.ec_r[own].sum())
+    if ladder:
+        total += 4 * sum(getattr(rel, f).numel() for f in (
+            "ladder_k", "ladder_r", "ladder_eff", "ladder_coef",
+            "ladder_up", "ladder_down"))
+    return total
+
+
+def rel_epoch_errors(args, got, want) -> dict:
+    """The kernel's outputs against the plain version's, which it matches
+    bit for bit (fleet_kernels.cu sums in torch.sum's order): the fields
+    that differ, with the flows and the largest relative difference of
+    each, and whether the loss-free flows' recovered bytes stay exactly
+    what they were."""
+    import torch
+    st, split, sub_loss = args[1], args[4], args[5]
+    (new, cut, gp), (w_new, w_cut, w_gp) = got, want
+    differ = {}
+    for f, g, w in [*zip(new._fields, new, w_new), ("cut", cut, w_cut),
+                    ("goodput", gp, w_gp)]:
+        if not torch.equal(g, w):
+            g, w = g.double(), w.double()
+            differ[f] = dict(flows=int((g != w).sum()), max_rel=float(
+                ((g - w).abs() / w.abs().clamp(min=1e-30)).max()))
+    zero = split[:, 0] * sub_loss[:, 0] == 0.0
+    return dict(bitwise_equal=not differ, differ=differ,
+                loss_free_exact=bool(torch.equal(new.rec_bytes[zero],
+                                                 st.rec_bytes[zero])))
+
+
+def rel_epoch_phase(dev, card):
+    """The reliability kernel at both benchmark cells' shapes (`rel_epoch`
+    line): against the plain version (`rel_epoch_errors`), the input state
+    unwritten, no host sync, time and device time beside its byte bound
+    and the plain version's; then each grid's program (`fault_sweep`,
+    `recovery_sweep`) for REL_RUN_EPOCHS epochs, one launch an epoch.
+    Returns the records."""
+    import torch
+    from repro_torch.fleetsim import reliability as R
+    from repro_torch.fleetsim import sweeps as SW
+    from repro_torch.kernels import fleet_cuda as K
+
+    t_phase = time.perf_counter()
+    records, runs = [], {}
+    for tag in REL_GRIDS:
+        rel = rel_grid_params(tag, dev)
+        args = rel_epoch_inputs(rel, dev)
+        st0 = type(args[1])(*(t.clone() for t in args[1]))
+        form = "static" if rel.ladder_k is None else "ladder"
+        counter = "rel_epoch/" + form
+        K.reset_launches()
+        got = R.rel_step(*args)
+        check(K.LAUNCHES[counter] == 1, f"rel_epoch@{tag}: {K.LAUNCHES}")
+        want = R.rel_step(*args, plain=True)
+        errs = rel_epoch_errors(args, got, want)
+        check(errs["bitwise_equal"] and errs["loss_free_exact"],
+              f"rel_epoch@{tag}: {errs}")
+        again = R.rel_step(*args)
+        repeat = all(bool(torch.equal(a, b)) for a, b in zip(
+            (*got[0], *got[1:]), (*again[0], *again[1:])))
+        unwritten = all(bool(torch.equal(a, b))
+                        for a, b in zip(args[1], st0))
+        check(repeat and unwritten, f"rel_epoch@{tag}: repeat {repeat}, "
+              f"input unwritten {unwritten}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            R.rel_step(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        del got, want, again, st0
+        n_bytes = rel_epoch_bytes(rel, 1)
+        path = f"rel:{tag}:cuda"
+        records.append(dict(
+            name=f"rel_epoch/{form}@{tag}", route="cuda",
+            source="src/repro_torch/kernels/csrc/fleet_kernels.cu",
+            replaces="none (reliability.py is jnp, fused by XLA)",
+            launches=0, path=path, counter=counter, max_abs_err=None,
+            **errs, ms=time_ms(lambda: R.rel_step(*args)),
+            plain_ms=time_ms(lambda: R.rel_step(*args, plain=True)),
+            bound_ms=bound_ms(n_bytes), bound_by="bytes", library_ms=None,
+            bytes=n_bytes, flows=rel.enabled.numel(),
+            bytes_per_flow=n_bytes / rel.enabled.numel(),
+            **call_profile(lambda: R.rel_step(*args)),
+            plain_profile=call_profile(
+                lambda: R.rel_step(*args, plain=True))))
+        del args, rel
+        # the grid's own program: one launch an epoch
+        kw = dict(n_inter=REL_FLOWS, n_warm=REL_RUN_EPOCHS // 2,
+                  n_meas=REL_RUN_EPOCHS - REL_RUN_EPOCHS // 2, device=dev)
+        if tag == "fault_sweep128":
+            fn = lambda: SW.fault_sweep(  # noqa: E731
+                [100 * SWEEP_DT * (i + 1) for i in range(8)],
+                ["down", "brownout", "flap", "burst"],
+                REL_GRIDS[tag]["policies"], fault_rtts=5.0, **kw)
+        else:
+            fn = lambda: SW.recovery_sweep(  # noqa: E731
+                [1.0, 1.5, 2.0, 3.0], REL_GRIDS[tag]["ecs"],
+                REL_GRIDS[tag]["holds_rtts"], **kw)
+        t0 = time.perf_counter()
+        drive(path, fn)
+        runs[path] = dict(seconds=time.perf_counter() - t0,
+                          epochs=REL_RUN_EPOCHS, launches=PATHS[path])
+        check(PATHS[path].get(counter) == REL_RUN_EPOCHS,
+              f"{path}: {PATHS[path]}")
+    emit("rel_epoch", **card, records=records, runs=runs,
          seconds=time.perf_counter() - t_phase)
     return records
 
@@ -3826,6 +4034,7 @@ def main() -> int:
     dumbbells(dev, card, fs_mp)
     dynamics_phase(dev, card, records, plan)
     records += sweeps_phase(dev, card)
+    records += rel_epoch_phase(dev, card)
     records += sharded_grid_phase(fs, dev, card)
     del fs, fs_mp
     service_phase(dev, card, records)

@@ -132,7 +132,9 @@ def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
     `lb=None` freezes the split at its initial value (static spraying)
     and reports raw goodput; `churn`, `rel` and `fault` switch on their
     axes (module docstring).  `backend` picks the link-aggregation path
-    (links.LOAD_BACKENDS); it is resolved once, here.
+    (links.LOAD_BACKENDS); it is resolved once, here.  The reliability
+    phase follows it: the kernel backends run its kernel, the plain ones
+    (`reference`, `pt`) its plain version (`reliability.rel_step`).
     """
     draw, send, recv = make_step_halves(net, params, scheme, is_inter,
                                         lb=lb, churn=churn, rel=rel,
@@ -180,6 +182,8 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
     pmask = L.path_mask(net)
     single = net.n_paths == 1
     backend = L._resolve_backend(net, backend)
+    if rel is not None:     # the plain link backends run its plain version
+        rel_step = R.make_rel_step(rel, plain=backend in ("reference", "pt"))
     fb = torch.clamp(net.dt / params.rtt, max=1.0)
     n_draw = params.bdp.shape[0] if churn_map is None else churn_n
     fresh = p_off = p_on = None
@@ -244,13 +248,13 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
                 inst_frac = torch.sum(split * sub_frac, dim=1)
                 inst_delay = torch.sum(split * le.sub_delay, dim=1)
             goodput = wire * sc
-        rel_new, nack_fire, recovered = state.rel, None, None
+        rel_new, nack_fire, rel_goodput = state.rel, None, None
         if rel is not None:
+            # the CC acks the goodput before the EC split, `wire * sc`
             with span("fleetsim.reliability"):
-                lf = s1 * le.sub_loss[:, 0] if single else \
-                    torch.sum(split * le.sub_loss, dim=1)
-                rel_new, nack_fire, recovered = R.rel_epoch(
-                    rel, state.rel, sent.rate, rtx, wire, lf, net.dt, p.rtt)
+                rel_new, nack_fire, rel_goodput = rel_step(
+                    state.rel, sent.rate, rtx, split, le.sub_loss, sc,
+                    net.dt, p.rtt)
         with span("fleetsim.cc"):
             # feedback lag: first-order filter with time constant = flow RTT
             frac = state.obs_frac + fb * (inst_frac - state.obs_frac)
@@ -385,11 +389,7 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
                 if rel is None:
                     goodput = goodput * lb.ec_eff   # parity carries no payload
         if rel is not None:
-            # the dynamic EC split at the flow's current rung: delivered
-            # payload, retransmitted data (no parity), parity-recovered data
-            with span("fleetsim.reliability"):
-                eff = R.effective_eff(rel, state.rel)
-                goodput = goodput * eff + rtx * sc * (1.0 - eff) + recovered
+            goodput = rel_goodput   # the dynamic EC split at the old rung
 
         new = FleetState(
             cwnd=cwnd, ecn_ewma=ecn_ewma, md_scale=md_scale,

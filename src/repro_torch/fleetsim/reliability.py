@@ -30,15 +30,22 @@ traffic (`rtx_rate`), and a fired NACK cuts cwnd by `loss_md` at most
 once per flow RTT (`md_cd`).  The optional adaptive-EC ladder steps a
 flow's rung up or down on a flow-RTT-clock EWMA of its loss fraction,
 with hysteresis and a once-per-RTT cooldown (`rel_epoch`).
+
+The epoch step runs the whole phase through `rel_step`: one hand-written
+kernel launch on the card (`kernels.fleet_cuda.rel_epoch`), the same
+composition in torch operations on the CPU and on the plain link
+backends (`rel_step_plain`).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import fleet_cuda
 from repro_torch.trace import traced
 
 _EPS = 1e-9
@@ -362,3 +369,47 @@ def rel_epoch(rel: RelParams, st: RelState, rate: torch.Tensor,
         lost_bytes=st.lost_bytes + wire * q * dt,
         rung=rung, loss_ewma=loss_ewma, adapt_cd=adapt_cd)
     return new, cut, recovered_rate
+
+
+def rel_step(rel: RelParams, st: RelState, rate: torch.Tensor,
+             rtx: torch.Tensor, split: torch.Tensor, sub_loss: torch.Tensor,
+             sc: torch.Tensor, dt, rtt: torch.Tensor, *, plain: bool = False):
+    """The receive half's reliability phase in one call: the flow's loss
+    fraction (`sub_loss` split-weighted over its paths), `rel_epoch` on
+    the wire `rate + rtx`, and the goodput of that wire at the delivered
+    scale `sc` split by EC at the flow's current rung (delivered payload,
+    retransmitted data without parity, parity-recovered data).  Returns
+    (RelState', cut, goodput).  The goodput the congestion control acks,
+    `(rate + rtx) * sc`, is the caller's, before the split.
+
+    The hand-written kernel (`fleet_cuda.rel_epoch`, one launch) runs it
+    unless `plain`, which runs `rel_step_plain`, the same composition in
+    torch operations; on CPU tensors the kernel's wrapper runs that too.
+    On the card the two agree bit for bit.  Neither writes into `st`.
+    A step that runs it every epoch takes it from `make_rel_step`."""
+    return make_rel_step(rel, plain=plain)(st, rate, rtx, split, sub_loss,
+                                           sc, dt, rtt)
+
+
+def make_rel_step(rel: RelParams, *, plain: bool = False):
+    """`rel_step` with `rel` bound: a function of (st, rate, rtx, split,
+    sub_loss, sc, dt, rtt).  The kernel's form checks `rel` and packs it
+    once, here (`fleet_cuda.RelEpoch`)."""
+    if plain:
+        return functools.partial(rel_step_plain, rel)
+    return fleet_cuda.RelEpoch(rel)
+
+
+def rel_step_plain(rel: RelParams, st: RelState, rate: torch.Tensor,
+                   rtx: torch.Tensor, split: torch.Tensor,
+                   sub_loss: torch.Tensor, sc: torch.Tensor, dt,
+                   rtt: torch.Tensor):
+    """`rel_step` in torch operations: `rel_epoch`, `effective_eff` and
+    the goodput split, as the epoch step composed them."""
+    wire = rate + rtx
+    lf = split[:, 0] * sub_loss[:, 0] if split.shape[1] == 1 else \
+        torch.sum(split * sub_loss, dim=1)
+    new, cut, recovered = rel_epoch(rel, st, rate, rtx, wire, lf, dt, rtt)
+    eff = effective_eff(rel, st)
+    goodput = wire * sc * eff + rtx * sc * (1.0 - eff) + recovered
+    return new, cut, goodput

@@ -12,6 +12,9 @@
 //                                and through it the tiled (n_boundary=)
 //                                branch of path_table_scatter.
 //
+// and one that replaces no TPU kernel, uno_rel_epoch: the epoch step's
+// reliability phase in one pass (note below).
+//
 // The TPU kernels turn the sparse access into one-hot matmuls because the
 // TPU vector unit has no per-lane gather.  Hopper has real gathers, so the
 // kernels index directly.
@@ -111,12 +114,48 @@
 // twice as slow on the main path (2 x hseg id loads and gathers per
 // subflow in place of two float4 gathers).
 
+// uno_rel_epoch (rel_epoch_kernel) replaces no TPU kernel: the reference's
+// reliability.py is jnp, which XLA fuses on the TPU.  It is the epoch
+// step's reliability phase (reliability.rel_step) in one pass over the
+// flows: the loss fraction (split-weighted over the paths), the recovery
+// split at the flow's rung, the NACK machine, the EC ladder's step, the
+// EWMAs and counters, and the goodput split at the old rung.  Eager torch
+// ran it as ~100-135 elementwise kernels that wrote every intermediate,
+// among them (flows, 17) binomial tables, to device memory.  Here each
+// flow's operands are read once and its outputs written once to fresh
+// buffers (the state given is never written: callers keep old states, and
+// a fresh RelState shares one zero tensor among a dozen fields).  Only the
+// r pmf terms i = 1..r are evaluated (the i = 0 term is 0, coef is 0
+// past r), none at q = 0.
+//
+// It is bitwise the plain version on the card, so that a run on the
+// kernel backends and one on the plain ones take the same NACK and rung
+// decisions: float32 with every operation rounded on its own (__f*_rn,
+// IEEE division, powf) in the plain version's order, and its two sums,
+// the r-term window and the sum over the paths, in the order torch.sum
+// takes over a short contiguous row on the card (ATen's Reduce.cuh: lane
+// x of last_pow2(w) lanes holds a[x] + a[x + lanes], then lane x adds
+// lane x + lanes / 2, x + lanes / 4, ... x + 1; `pair_sum`; measured on
+// torch 2.11 at widths 2-9, 16 and 17).
+//
+// The ladder comes in three layouts, a template parameter read from the
+// tables' shapes: none (static EC), one shared (L,) ladder, or a grid's
+// per-cell (cells, L) tables, flow f reading cell f / cell_flows's row.
+// One flow a thread, coalesced 4-byte loads through the read-only path: 4
+// and 2 flows a thread with 16- and 8-byte accesses were tried and lost
+// (1.07 and 0.86 ms against 0.74 ms at 12.8M flows on an H100 SXM at 700
+// W: 154 and 89 registers leave one or two blocks an SM, too few warps to
+// hide the powf chains).
+// Bound: bytes, ~163 a flow with the ladder, 150 + 4 r without;
+// PERF.md has the times.
+
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // caller's stream and returns cudaGetLastError() right after the launch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -516,6 +555,248 @@ void launch_by_hops(int h, Args... args) {
   }
 }
 
+// ------------------------------------------------------------ rel_epoch
+
+constexpr int kRelThreads = 256;
+constexpr int kCoefCols = 17;                // reliability.MAX_R + 1
+
+// The EC ladder's layout, read from the tables' shapes by the wrapper.
+enum RelForm { kRelStatic = 0, kRelShared = 1, kRelPerCell = 2 };
+
+// The operands, in the order fleet_cuda.rel_epoch packs them (_REL_FLOW,
+// _REL_KNOBS, _REL_STATE; out the new RelState, cut, goodput): all (n,)
+// but split and sub_loss (n, p), coef (n, kCoefCols), the ladder tables
+// ((L,) and (L, kCoefCols), or (cells, L) and (cells, L, kCoefCols)) and
+// dt (a 0-d tensor).  The RelState
+// fields follow in RelState's order; the static form leaves the last
+// three (rung, loss_ewma, adapt_cd) unread and unwritten.
+struct RelIn {
+  const float *rate, *rtx, *sc, *rtt, *split, *sub_loss, *dt;
+  const uint8_t *enabled, *adapt_on;
+  const float *ec_k, *ec_r, *ec_eff;
+  const int *nack_period, *nack_hold;
+  const float *nack_quantum, *coef;
+  const float *lad_k, *lad_r, *lad_eff, *lad_coef, *lad_up, *lad_down;
+  const float *pending, *backlog;
+  const int *ack_cd, *hold;
+  const float *md_cd, *rtx_ewma, *lat_ewma, *nacks, *rec_bytes, *rtx_bytes,
+      *wire_bytes, *lost_bytes;
+  const int* rung;
+  const float *loss_ewma, *adapt_cd;
+};
+
+struct RelOut {
+  float *pending, *backlog;
+  int *ack_cd, *hold;
+  float *md_cd, *rtx_ewma, *lat_ewma, *nacks, *rec_bytes, *rtx_bytes,
+      *wire_bytes, *lost_bytes;
+  int* rung;
+  float *loss_ewma, *adapt_cd;
+  uint8_t* cut;
+  float* goodput;
+};
+
+// torch.clamp's one-sided bounds: NaN passes through.
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan(x) ? x : (x < lo ? lo : x);
+}
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+  return isnan(x) ? x : (x > hi ? hi : x);
+}
+
+// torch.sum's order over L lanes (the note at the top of the file): lane
+// j adds lane j + L / 2, then j + L / 4, and so on down to j + 1.
+template <int L>
+__device__ __forceinline__ float pair_sum(float (&v)[L]) {
+#pragma unroll
+  for (int s = L / 2; s >= 1; s >>= 1)
+#pragma unroll
+    for (int j = 0; j < s; ++j) v[j] = __fadd_rn(v[j], v[j + s]);
+  return v[0];
+}
+
+// The flow's loss fraction over its 2 <= p < 2 L paths, L = last_pow2(p):
+// lane x holds split * loss of path x, plus that of path x + L.
+template <int L>
+__device__ __forceinline__ float path_loss(const float* __restrict__ split,
+                                           const float* __restrict__ loss,
+                                           int p) {
+  float v[L];
+#pragma unroll
+  for (int x = 0; x < L; ++x) {
+    v[x] = __fmul_rn(__ldg(split + x), __ldg(loss + x));
+    if (x + L < p)
+      v[x] = __fadd_rn(v[x], __fmul_rn(__ldg(split + x + L),
+                                       __ldg(loss + x + L)));
+  }
+  return pair_sum(v);
+}
+
+// E[X 1(X <= r)] for X ~ Binomial(n, q), from the flow's pmf coefficients
+// C(n, i), i = 1..r: the i = 0 term is 0, coef is 0 past r, and at q = 0
+// every term is 0.  torch.sum puts the kCoefCols terms on 16 lanes, term i
+// on lane i mod 16 (the i = 16 term beside the i = 0 one, 0), and first
+// adds lane j + 8 to lane j: acc[j] takes terms j and j + 8 as they come
+// (an add of a term, which is >= 0, to 0 is exact), a rolled loop with
+// no array indexed at run time; `pair_sum` does the rest.
+__device__ __forceinline__ float rec_window(const float* __restrict__ crow,
+                                            float n, float r, float q) {
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+  if (q == 0.0f) return 0.0f;
+  const float keep = __fsub_rn(1.0f, q);
+  const int top = min((int)r, kCoefCols - 1);
+  for (int i = 1; i <= top; ++i) {
+    const float fi = (float)i;
+    const float p_i =
+        __fmul_rn(__fmul_rn(__ldg(crow + i), powf(q, fi)),
+                  powf(keep, clamp_min(__fsub_rn(n, fi), 0.0f)));
+    const float t = __fmul_rn(fi, p_i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[j] = (i & 7) == j ? __fadd_rn(acc[j], t) : acc[j];
+  }
+  return pair_sum(acc);
+}
+
+// One epoch of the reliability phase, one flow a thread (the note at the
+// top of the file).  FORM: the ladder's layout.
+template <int FORM>
+__global__ void __launch_bounds__(kRelThreads)
+rel_epoch_kernel(RelIn in, RelOut out, int64_t n, int n_paths,
+                 int64_t cell_flows, int n_rungs) {
+  const int64_t f = (int64_t)blockIdx.x * kRelThreads + threadIdx.x;
+  if (f >= n) return;
+  constexpr bool kLadder = FORM != kRelStatic;
+  const float dt = __ldg(in.dt);
+  const float rate = __ldg(in.rate + f), rtx = __ldg(in.rtx + f),
+              sc = __ldg(in.sc + f), rtt = __ldg(in.rtt + f);
+  const float* split = in.split + f * n_paths;
+  const float* loss = in.sub_loss + f * n_paths;
+  float lf;
+  if (n_paths == 1)
+    lf = __fmul_rn(__ldg(split), __ldg(loss));
+  else if (n_paths < 4)
+    lf = path_loss<2>(split, loss, n_paths);
+  else if (n_paths < 8)
+    lf = path_loss<4>(split, loss, n_paths);
+  else if (n_paths < 16)
+    lf = path_loss<8>(split, loss, n_paths);
+  else if (n_paths < 32)
+    lf = path_loss<16>(split, loss, n_paths);
+  else
+    lf = path_loss<32>(split, loss, n_paths);
+  const bool en = __ldg(in.enabled + f) != 0;
+  const int period = __ldg(in.nack_period + f),
+            holdoff = __ldg(in.nack_hold + f);
+  const float quantum = __ldg(in.nack_quantum + f);
+  const int ack_cd = __ldg(in.ack_cd + f), hold = __ldg(in.hold + f);
+  const float pending = __ldg(in.pending + f),
+              backlog = __ldg(in.backlog + f), md_cd = __ldg(in.md_cd + f);
+
+  // the geometry at the flow's rung: its own (k, r, eff, coef row), or its
+  // cell's ladder row when it adapts
+  float k, r, eff;
+  const float* crow;
+  bool on = false;
+  int rung = 0;
+  int64_t t = 0;
+  if constexpr (kLadder) {
+    on = __ldg(in.adapt_on + f) != 0;
+    rung = __ldg(in.rung + f);
+    t = (FORM == kRelPerCell ? f / cell_flows * n_rungs : 0) + rung;
+  }
+  if (on) {
+    k = __ldg(in.lad_k + t);
+    r = __ldg(in.lad_r + t);
+    eff = __ldg(in.lad_eff + t);
+    crow = in.lad_coef + t * kCoefCols;
+  } else {
+    k = __ldg(in.ec_k + f);
+    r = __ldg(in.ec_r + f);
+    eff = __ldg(in.ec_eff + f);
+    crow = in.coef + f * kCoefCols;
+  }
+
+  const float g = clamp_max(__fdiv_rn(dt, rtt), 1.0f);
+  const float q = clamp_max(clamp_min(lf, 0.0f), 1.0f);
+  // the recovery split at the current rung
+  const float nn = __fadd_rn(k, r);
+  const float win = rec_window(crow, nn, r, q);
+  const float nack_win = clamp_min(__fsub_rn(__fmul_rn(nn, q), win), 0.0f);
+  const float scale =
+      en ? __fdiv_rn(k, clamp_min(__fmul_rn(nn, nn), 1.0f)) : 0.0f;
+  const float recovered = __fmul_rn(rate, __fmul_rn(win, scale));
+  const float nack_frac = __fmul_rn(nack_win, scale);
+  // the NACK machine
+  const float lost_new = __fadd_rn(__fmul_rn(__fmul_rn(rate, nack_frac), dt),
+                                   __fmul_rn(__fmul_rn(rtx, q), dt));
+  const float pend = __fadd_rn(pending, lost_new);
+  const bool tick = ack_cd <= 1;
+  const bool fire = tick && hold <= 0 && pend >= quantum && en;
+  out.backlog[f] =
+      __fadd_rn(clamp_min(__fsub_rn(backlog, __fmul_rn(rtx, dt)), 0.0f),
+                fire ? pend : 0.0f);
+  out.pending[f] = fire ? 0.0f : pend;
+  out.hold[f] = fire ? holdoff : max(hold - 1, 0);
+  out.ack_cd[f] = tick ? period : ack_cd - 1;
+  const bool cut = fire && md_cd <= 0.0f;
+  out.cut[f] = cut;
+  out.md_cd[f] = cut ? rtt : clamp_min(__fsub_rn(md_cd, dt), 0.0f);
+  // the EC ladder
+  if constexpr (kLadder) {
+    const float ewma0 = __ldg(in.loss_ewma + f);
+    const float ewma = __fadd_rn(ewma0, __fmul_rn(g, __fsub_rn(q, ewma0)));
+    const float cd =
+        clamp_min(__fsub_rn(__ldg(in.adapt_cd + f), dt), 0.0f);
+    const bool can = on && en && cd <= 0.0f;
+    const bool step_up =
+        can && ewma > __ldg(in.lad_up + t) && rung < n_rungs - 1;
+    const bool step_dn = can && ewma < __ldg(in.lad_down + t) && rung > 0;
+    out.rung[f] = rung + (int)step_up - (int)step_dn;
+    out.adapt_cd[f] = step_up || step_dn ? rtt : cd;
+    out.loss_ewma[f] = ewma;
+  }
+  // latency and retransmit EWMAs, the cumulative counters
+  const float lat_nack = __fadd_rn(
+      __fmul_rn(1.5f, rtt),
+      __fmul_rn(__fmul_rn(0.5f, (float)(period + holdoff)), dt));
+  const float vol = __fadd_rn(recovered, rtx);
+  const float inst = __fdiv_rn(
+      __fadd_rn(__fmul_rn(recovered, rtt), __fmul_rn(rtx, lat_nack)),
+      clamp_min(vol, 1e-9f));
+  const float lat = __ldg(in.lat_ewma + f);
+  out.lat_ewma[f] =
+      vol > 0.0f ? __fadd_rn(lat, __fmul_rn(g, __fsub_rn(inst, lat))) : lat;
+  const float rtx_ewma = __ldg(in.rtx_ewma + f);
+  out.rtx_ewma[f] =
+      __fadd_rn(rtx_ewma, __fmul_rn(g, __fsub_rn(rtx, rtx_ewma)));
+  out.nacks[f] = __fadd_rn(__ldg(in.nacks + f), fire ? 1.0f : 0.0f);
+  out.rec_bytes[f] =
+      __fadd_rn(__ldg(in.rec_bytes + f), __fmul_rn(recovered, dt));
+  out.rtx_bytes[f] = __fadd_rn(__ldg(in.rtx_bytes + f), __fmul_rn(rtx, dt));
+  const float wire = __fadd_rn(rate, rtx);
+  out.wire_bytes[f] =
+      __fadd_rn(__ldg(in.wire_bytes + f), __fmul_rn(wire, dt));
+  out.lost_bytes[f] = __fadd_rn(__ldg(in.lost_bytes + f),
+                                __fmul_rn(__fmul_rn(wire, q), dt));
+  // the goodput split at the old rung's efficiency
+  out.goodput[f] = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fmul_rn(wire, sc), eff),
+                __fmul_rn(__fmul_rn(rtx, sc), __fsub_rn(1.0f, eff))),
+      recovered);
+}
+
+template <int FORM>
+void launch_rel_epoch(const RelIn& in, const RelOut& out, int64_t n,
+                      int n_paths, int64_t cell_flows, int n_rungs,
+                      cudaStream_t stream) {
+  const int blocks = (int)((n + kRelThreads - 1) / kRelThreads);
+  rel_epoch_kernel<FORM><<<blocks, kRelThreads, 0, stream>>>(
+      in, out, n, n_paths, cell_flows, n_rungs);
+}
+
 }  // namespace
 
 extern "C" {
@@ -575,6 +856,37 @@ int uno_pt_gathers(const int* pre_id, const int* suf_id, const int* seg_idx,
   if (err != cudaSuccess) return (int)err;
   pt_compose_kernel<<<blocks_for_rows(n_sub), kGatherThreads, 0, stream>>>(
       pre_id, suf_id, seg4, out, (int64_t)n_sub);
+  return (int)cudaGetLastError();
+}
+
+// The reliability phase of the epoch step (reliability.rel_step), one
+// launch.  in_ptrs: the RelIn operands, out_ptrs: the RelOut ones, in
+// those structs' order, null where absent; n > 0 flows of 1 <= n_paths <
+// 64 paths; form: RelForm; cell_flows: flows per cell (kRelPerCell);
+// n_rungs: the ladder's length.
+int uno_rel_epoch(const void* const* in_ptrs, void* const* out_ptrs,
+                  long long n, int n_paths, long long cell_flows, int n_rungs,
+                  int form, cudaStream_t stream) {
+  RelIn in;
+  RelOut out;
+  memcpy(&in, in_ptrs, sizeof(in));
+  memcpy(&out, out_ptrs, sizeof(out));
+  switch (form) {
+    case kRelStatic:
+      launch_rel_epoch<kRelStatic>(in, out, n, n_paths, cell_flows, n_rungs,
+                                   stream);
+      break;
+    case kRelShared:
+      launch_rel_epoch<kRelShared>(in, out, n, n_paths, cell_flows, n_rungs,
+                                   stream);
+      break;
+    case kRelPerCell:
+      launch_rel_epoch<kRelPerCell>(in, out, n, n_paths, cell_flows,
+                                    n_rungs, stream);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,10 @@ exchange (``csrc/fleet_kernels.cu``), replacing the Pallas TPU kernels of
     function, `uno_pt_gathers`): the per-segment reductions of the
     (U, hseg) table, then the per-subflow prefix/suffix composition, two
     device kernels a call and no torch work around them.
+  * `rel_epoch` — the epoch step's reliability phase
+    (`reliability.rel_step`: recovery split, NACK machine, EC ladder,
+    goodput split) in one launch.  It replaces no TPU kernel: the
+    reference's `reliability.py` is jnp, which XLA fuses.
 
 Device rule: a wrapper given CPU tensors runs its kernel's plain version
 (`repro_torch.kernels.ref`); given CUDA tensors it launches the kernel or
@@ -37,6 +41,7 @@ built on them makes no host sync.
 """
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 from typing import Optional, Tuple
 
@@ -347,3 +352,166 @@ def path_table_gathers(pt, scale, clean, delay):
     _raise_on(err, "uno_pt_gathers")
     LAUNCHES["pt_gathers"] += 1
     return outs
+
+
+# ------------------------------------------------------------- rel_epoch
+
+# uno_rel_epoch's operands in the order of RelIn / RelOut in
+# fleet_kernels.cu: the flow inputs, the RelParams knobs it reads, the
+# RelState fields in their order; out, the new RelState, cut and goodput.
+_REL_FLOW = ("rate", "rtx", "sc", "rtt", "split", "sub_loss", "dt")
+_REL_KNOBS = ("enabled", "adapt_on", "ec_k", "ec_r", "ec_eff", "nack_period",
+              "nack_hold", "nack_quantum", "coef", "ladder_k", "ladder_r",
+              "ladder_eff", "ladder_coef", "ladder_up", "ladder_down")
+_REL_STATE = ("pending", "backlog", "ack_cd", "hold", "md_cd", "rtx_ewma",
+              "lat_ewma", "nacks", "rec_bytes", "rtx_bytes", "wire_bytes",
+              "lost_bytes", "rung", "loss_ewma", "adapt_cd")
+_REL_INT = ("ack_cd", "hold", "rung", "nack_period", "nack_hold")
+_REL_BOOL = ("enabled", "adapt_on")
+_REL_LADDER_STATE = ("rung", "loss_ewma", "adapt_cd")   # static: passed on
+
+
+def _rel_cols() -> int:
+    from repro_torch.fleetsim.reliability import MAX_R
+    return MAX_R + 1
+
+
+class RelEpoch:
+    """``rel_epoch_kernel``'s launch for one RelParams `rel`: its knobs
+    are checked and their pointers packed once, here, so that a call
+    checks and packs only the state and flow tensors.  The ladder form
+    comes from the tables' shapes: 0 none, 1 a shared (L,) ladder, 2 a
+    grid's per-cell (cells, L) tables.  Calls as `rel_epoch` without its
+    first operand."""
+
+    def __init__(self, rel):
+        ladder = rel.ladder_k
+        form = 0 if ladder is None else ladder.dim()
+        if form not in (0, 1, 2):
+            raise ValueError(f"ladder_k: expected 1-d or 2-d, got shape "
+                             f"{tuple(ladder.shape)}")
+        knobs = [k for k in _REL_KNOBS if form or not k.startswith(
+            ("ladder_", "adapt_on"))]
+        for name in knobs:
+            t = getattr(rel, name)
+            if t is None:
+                raise ValueError(f"rel.{name} is None with an EC ladder set")
+            dtype = torch.int32 if name in _REL_INT else \
+                torch.bool if name in _REL_BOOL else torch.float32
+            ndim = (form + (name == "ladder_coef")) if name.startswith(
+                "ladder_") else 2 if name == "coef" else 1
+            _check(t, "rel." + name, dtype, ndim)
+        n = rel.enabled.shape[0]
+        for name in knobs:
+            if not name.startswith("ladder_") and \
+                    getattr(rel, name).shape[0] != n:
+                raise ValueError(f"rel.{name}: expected {n} rows, got "
+                                 f"{getattr(rel, name).shape[0]}")
+        if rel.coef.shape[1] != _rel_cols():
+            raise ValueError(f"rel.coef: expected {_rel_cols()} columns, "
+                             f"got {rel.coef.shape[1]}")
+        tab = (1, 1)
+        if form:
+            tab = tuple(ladder.shape)
+            if rel.ladder_coef.shape != (*tab, _rel_cols()) or any(
+                    getattr(rel, k).shape != tab for k in _REL_KNOBS[9:]
+                    if k != "ladder_coef"):
+                raise ValueError("ladder tables disagree in shape")
+            if form == 2 and n % tab[0]:
+                raise ValueError(f"{n} flows do not split into {tab[0]} "
+                                 f"cells")
+        self.rel, self.form, self.n = rel, form, n
+        self.cell_flows = n // tab[0] if form == 2 else n
+        self.n_rungs = tab[-1]
+        self.counter = "rel_epoch/" + ("ladder" if form else "static")
+        # the state fields it reads and writes; the static form passes the
+        # ladder's on as they are
+        self.fields = [f for f in _REL_STATE
+                       if form or f not in _REL_LADDER_STATE]
+        self.ints = [f for f in self.fields if f in _REL_INT]
+        self.floats = [f for f in self.fields if f not in _REL_INT]
+        _on_cuda(*(getattr(rel, k) for k in knobs))
+        self.knob_ptrs = [getattr(rel, k).data_ptr() if k in knobs else None
+                          for k in _REL_KNOBS]
+
+    def __call__(self, st, rate: torch.Tensor, rtx: torch.Tensor,
+                 split: torch.Tensor, sub_loss: torch.Tensor,
+                 sc: torch.Tensor, dt, rtt: torch.Tensor):
+        n = self.n
+        _check(split, "split", torch.float32, 2)
+        _check(sub_loss, "sub_loss", torch.float32, 2)
+        n_paths = split.shape[1]
+        if split.shape[0] != n or sub_loss.shape != split.shape:
+            raise ValueError(f"split, sub_loss: expected ({n}, p), got "
+                             f"{tuple(split.shape)}, "
+                             f"{tuple(sub_loss.shape)}")
+        flow = (rate, rtx, sc, rtt)     # _REL_FLOW's order
+        for name, t in zip(_REL_FLOW, flow):
+            _check(t, name, torch.float32, 1)
+        state = [getattr(st, f) for f in self.fields]
+        for f, t in zip(self.fields, state):
+            _check(t, "st." + f,
+                   torch.int32 if f in _REL_INT else torch.float32, 1)
+        for name, t in [*zip(_REL_FLOW, flow), *zip(self.fields, state)]:
+            if t.shape[0] != n:
+                raise ValueError(f"{name}: expected {n} rows, got "
+                                 f"{t.shape[0]}")
+        if not _on_cuda(self.rel.enabled, split, sub_loss, *flow, *state):
+            from repro_torch.fleetsim.reliability import rel_step_plain
+            return rel_step_plain(self.rel, st, rate, rtx, split, sub_loss,
+                                  sc, dt, rtt)
+        if not (isinstance(dt, torch.Tensor) and dt.device == rate.device
+                and dt.dtype == torch.float32 and dt.numel() == 1):
+            raise ValueError(f"dt: expected one float32 on {rate.device}, "
+                             f"got {dt!r}")
+        if n_paths >= 64:
+            raise ValueError(f"split: {n_paths} paths, the kernel takes "
+                             f"fewer than 64")
+        dev = rate.device
+        fbuf = torch.empty((len(self.floats), n), dtype=torch.float32,
+                           device=dev)
+        ibuf = torch.empty((len(self.ints), n), dtype=torch.int32,
+                           device=dev)
+        new = {f: getattr(st, f) for f in _REL_LADDER_STATE}
+        new.update(zip(self.floats, fbuf.unbind(0)))
+        new.update(zip(self.ints, ibuf.unbind(0)))
+        new = type(st)(**new)
+        cut = torch.empty(n, dtype=torch.bool, device=dev)
+        goodput = torch.empty(n, dtype=torch.float32, device=dev)
+        if n == 0:
+            return new, cut, goodput
+        from repro_torch.kernels import build
+        lib = build.load("fleet")
+        ins = [t.data_ptr() for t in (*flow, split, sub_loss)] + \
+            [dt.data_ptr()] + self.knob_ptrs + \
+            [getattr(st, f).data_ptr() if f in self.fields else None
+             for f in _REL_STATE]
+        outs = [getattr(new, f).data_ptr() if f in self.fields else None
+                for f in _REL_STATE] + [cut.data_ptr(), goodput.data_ptr()]
+        ins = (ctypes.c_void_p * len(ins))(*ins)
+        outs = (ctypes.c_void_p * len(outs))(*outs)
+        err = lib.uno_rel_epoch(
+            ctypes.addressof(ins), ctypes.addressof(outs), n, n_paths,
+            self.cell_flows, self.n_rungs, self.form,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "uno_rel_epoch")
+        LAUNCHES[self.counter] += 1
+        return new, cut, goodput
+
+
+def rel_epoch(rel, st, rate: torch.Tensor, rtx: torch.Tensor,
+              split: torch.Tensor, sub_loss: torch.Tensor, sc: torch.Tensor,
+              dt, rtt: torch.Tensor):
+    """The epoch step's reliability phase (the contract of
+    `reliability.rel_step`) in one launch of ``rel_epoch_kernel``: `rel`
+    a RelParams, `st` a RelState, all (n,) but `split` / `sub_loss` (n, p)
+    f32, p < 64; `dt` the epoch, a 0-d f32 tensor on their device (on
+    the CPU the plain version takes a number too).  Returns
+    (RelState', cut, goodput): the new state in fresh tensors (the float
+    fields rows of one buffer, the int32 ones of another; without a
+    ladder `rung`, `loss_ewma` and `adapt_cd` pass on as they are), the
+    cut mask and the EC-split goodput, bitwise the plain version's;
+    `st` is never written.  Counted as ``rel_epoch/static`` without a
+    ladder, else ``rel_epoch/ladder``.  A step that runs it every epoch
+    builds `RelEpoch(rel)` once."""
+    return RelEpoch(rel)(st, rate, rtx, split, sub_loss, sc, dt, rtt)

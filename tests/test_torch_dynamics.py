@@ -180,6 +180,37 @@ def test_make_rel_params_matches_reference():
         TR.stack_rel_params(two)
 
 
+def _zero_past_r(coef, r) -> bool:
+    cols = torch.arange(coef.shape[-1], dtype=r.dtype)
+    return bool((coef[cols > r[..., None]] == 0.0).all())
+
+
+def test_coef_is_zero_past_r_on_every_built_rel_params(tmp_path):
+    """The reliability kernel evaluates the pmf terms up to r only: every
+    RelParams the port builds or loads holds 0.0 past r in `coef`, and in
+    `ladder_coef` past each rung's r (`make_rel_params`, with and without
+    a ladder and a disabled mask; `stack_rel_params`; a grid's per-cell
+    tables from `sweeps._stack_rel`; a reference bundle through
+    `carry`)."""
+    from repro_torch.fleetsim import sweeps as TSW
+    en = np.array([True, False, True, True, False])
+    built = [TR.make_rel_params(5, device="cpu", enabled=en, **kw)
+             for kw in (dict(), dict(ec=(4, 0)), dict(ec=(10, 16)), LADDER)]
+    rels = built + [
+        TR.stack_rel_params(built[:3]),
+        TR.stack_rel_params([built[3], built[0]]),
+        TSW._stack_rel([TR.make_rel_params(4, ladder=lad, device="cpu")
+                        for lad in (((8, 1), (8, 2)), ((4, 1), (4, 16)))])]
+    path = RSV.save_bundle(tmp_path / "bundle.npz", _ref_fs())
+    with np.load(path, allow_pickle=False) as z:
+        rels.append(carry.scenario_from_arrays(z, device="cpu").rel)
+    assert rels[-2].ladder_k.dim() == 2 and rels[-1].ladder_k is not None
+    for i, rel in enumerate(rels):
+        assert _zero_past_r(rel.coef, rel.ec_r), i
+        if rel.ladder_k is not None:
+            assert _zero_past_r(rel.ladder_coef, rel.ladder_r), i
+
+
 def test_make_churn_params_and_init_state_carries_match_reference():
     """`make_churn_params`, and the key / RelState / FaultCarry a fresh
     `init_state` starts from, equal the reference's."""

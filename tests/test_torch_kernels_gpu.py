@@ -3,7 +3,10 @@ and K5 (the UnoRC dequant) on the card, against their plain versions,
 bitwise; K1 / K2 flat at the shapes of a sweep grid (8 x 100k-flow
 dumbbells as one block-diagonal net); and K6, K1 stage 1 and the
 PathTable gathers at shard 0 of the sharded grid (two k=8, 100k-flow fat
-trees under cell 0's plan lifted to the grid).
+trees under cell 0's plan lifted to the grid); the reliability kernel
+(`rel_epoch`) bitwise `reliability.rel_step`'s plain version in its three
+ladder forms, at both benchmark cells' shapes, at shard 0 of the sharded
+fault grid and on 3 to 8 paths.
 
 This file imports no JAX, so that it runs on the machine with the card:
 
@@ -26,7 +29,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import rel_cases as RC  # noqa: E402
 from repro_torch.fleetsim import links as TL  # noqa: E402
+from repro_torch.fleetsim import reliability as TR  # noqa: E402
+from repro_torch.fleetsim import shard as TSH  # noqa: E402
 from repro_torch.kernels import fleet_cuda, unorc_cuda  # noqa: E402
 from repro_torch.kernels import ref as TK  # noqa: E402
 
@@ -361,3 +367,105 @@ def test_lifted_grid_k1_pt_gathers_match_plain_versions_on_card(
                                   *link_vals), "pt_gathers at the grid")
     _equal(fleet_cuda.path_table_gathers(pt, *link_vals), out,
            "pt_gathers twice")
+
+
+# ---------------------------------------------------------------- rel_epoch
+
+# name: (ladder form, paths, flows, cells[, static EC]); the two benchmark
+# shapes, a flow count that leaves a 3-flow tail (its state rows
+# unaligned: the kernel's one-flow-at-a-time access), 3, 4, 6 and 8
+# paths a flow (each lane count of the kernel's path sum, one or two paths
+# a lane), and the widest EC window, r = 16, whose last term shares a lane
+REL_CASES = {
+    "per_cell@fault_sweep128": ("per_cell", 1, 128 * 100_000, 128),
+    "static@recovery_sweep64": ("static", 1, 64 * 100_000, 64),
+    "shared:tail": ("shared", 1, 100_003, 1),
+    "shared:4paths": ("shared", 4, 40_000, 1),
+    "per_cell:4paths": ("per_cell", 4, 12 * 1_001, 12),
+    "static:4paths:tail": ("static", 4, 9_999, 1),
+    "static:3paths": ("static", 3, 30_000, 1),
+    "per_cell:6paths": ("per_cell", 6, 12 * 2_000, 12),
+    "shared:8paths": ("shared", 8, 20_000, 1),
+    "static:r16": ("static", 1, 50_000, 1, (16, 16)),
+}
+
+
+def _rel_against_plain(args, got, what):
+    """The kernel's (RelState', cut, goodput) against the plain version's
+    on the same card inputs: every field of every flow bitwise equal, as
+    the dynamics runs of chip_smoke.py need for a kernel backend and a
+    plain one to take the same NACK and rung decisions (the kernel sums
+    in torch.sum's order, fleet_kernels.cu).  A loss-free flow's
+    recovered bytes stay exactly what they were."""
+    rel, st, rate, rtx, split, sub_loss, sc, dt, rtt = args
+    want = TR.rel_step(*args, plain=True)
+    (new, cut, gp), (w_new, w_cut, w_gp) = got, want
+    for f, g, w in [*zip(new._fields, new, w_new), ("cut", cut, w_cut),
+                    ("goodput", gp, w_gp)]:
+        if not torch.equal(g, w):
+            g, w = g.double(), w.double()
+            rel_err = float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+            pytest.fail(f"{what}: {f} differs on {int((g != w).sum())} of "
+                        f"{g.numel()} flows, {rel_err:.3g} relative at most")
+    lf = split[:, 0] * sub_loss[:, 0] if split.shape[1] == 1 else \
+        torch.sum(split * sub_loss, dim=1)
+    zero = lf == 0.0
+    assert bool(zero.any()) and torch.equal(new.rec_bytes[zero],
+                                            st.rec_bytes[zero]), what
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(REL_CASES))
+def test_rel_epoch_matches_plain_version_on_card(dev, case):
+    """The reliability kernel bitwise `rel_step`'s plain version on the
+    same card inputs (`_rel_against_plain`), at the benchmark's shapes
+    and on the edge rows of `rel_cases`; dt as a number refused; the
+    state it was given is left bitwise as it was; one launch a call,
+    counted under its form; no host sync; two runs bitwise equal."""
+    form, n_paths, n, cells, *ec = REL_CASES[case]
+    args = RC.rel_inputs(form, n_paths, n, cells, seed=n, device=dev,
+                         **dict(zip(["ec"], ec)))
+    st0 = type(args[1])(*(t.clone() for t in args[1]))
+    key = "rel_epoch/" + ("static" if form == "static" else "ladder")
+    before = fleet_cuda.LAUNCHES[key]
+    got = _no_sync(lambda: TR.rel_step(*args))
+    assert fleet_cuda.LAUNCHES[key] == before + 1
+    _rel_against_plain(args, got, case)
+    for f, a, b in zip(st0._fields, args[1], st0):
+        assert torch.equal(a, b), f"{case}: input {f} written"
+    again = TR.rel_step(*args)
+    for a, b in zip((*got[0], *got[1:]), (*again[0], *again[1:])):
+        assert torch.equal(a, b), case
+    if form == "static":
+        assert got[0].rung is args[1].rung
+    # from the fresh state, whose fields share one zero tensor
+    fresh = TR.init_rel_state(args[0])
+    got = TR.rel_step(args[0], fresh, *args[2:])
+    _rel_against_plain((args[0], fresh, *args[2:]), got, case + ":fresh")
+    assert float(fresh.pending.abs().max()) == 0.0
+    assert fresh.pending is fresh.lost_bytes
+    # the kernel reads dt on the card: a number is refused, not rounded
+    # otherwise than the plain version rounds it
+    with pytest.raises(ValueError, match="dt"):
+        TR.rel_step(*args[:7], float(args[7]), args[8])
+
+
+@pytest.mark.gpu
+def test_rel_epoch_matches_plain_version_at_a_grid_shard_on_card(dev):
+    """Shard 0 of fault_sweep128's grid on two shards: each cell's flows
+    dealt round-robin (a dumbbell flow's every hop is a hub), its rows
+    cell-major and its last row a padding row (`shard._take_rel`), so
+    the per-cell tables are read at 50,000 rows a cell."""
+    n, cells = 128 * 100_000, 128
+    args = RC.rel_inputs("per_cell", 1, n, cells, seed=5, device=dev)
+    f = n // cells
+    idx = (torch.arange(cells, device=dev)[:, None] * f +
+           torch.arange(0, f, 2, device=dev)[None, :]).reshape(-1)
+    real = torch.ones(idx.numel(), dtype=torch.bool, device=dev)
+    real[f // 2 - 1::f // 2] = False
+    rel = TSH._take_rel(args[0], idx, real)
+    st = type(args[1])(*(t[idx] for t in args[1]))
+    rest = [t[idx] if t.dim() else t for t in args[2:]]
+    got = _no_sync(lambda: TR.rel_step(rel, st, *rest))
+    _rel_against_plain((rel, st, *rest), got, "fault_sweep128:shard0")

@@ -97,8 +97,9 @@ def test_one_epoch_is_one_span_tree():
     draws = [r for r in recs if r.name == "prng.threefry2x32"]
     assert draws and len(draws) == prng.CALLS["threefry2x32"] - calls
     assert all(recs[r.parent].name == "fleetsim.faults" for r in draws)
-    # send (rtx) and receive (the NACK machine, the EC split) both recover
-    assert sum(r.name == "fleetsim.reliability" for r in kids) == 3
+    # send (rtx) and receive (`rel_step`: the NACK machine and the EC
+    # split in one call) both recover
+    assert sum(r.name == "fleetsim.reliability" for r in kids) == 2
     assert sum(r.name == "fleetsim.cc" for r in kids) == 1
 
 
