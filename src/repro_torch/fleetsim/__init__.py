@@ -20,8 +20,8 @@ from repro_torch.fleetsim.links import (LOAD_BACKENDS, FluidNet, PathTable,
                                         halo_exchange, layout_from_arrays,
                                         layout_to_arrays, link_epoch,
                                         normalize_split, offered_load,
-                                        scatter_partial, uniform_split,
-                                        with_layout)
+                                        scatter_partial, tile_layout,
+                                        uniform_split, with_layout)
 from repro_torch.fleetsim.reliability import (RelParams, RelState,
                                               init_rel_state,
                                               make_rel_params,
@@ -56,7 +56,7 @@ __all__ = [
     "compute_layout", "compute_path_table", "drop_prob", "dumbbell",
     "halo_exchange", "layout_from_arrays", "layout_to_arrays",
     "link_epoch", "normalize_split", "offered_load", "scatter_partial",
-    "uniform_split", "with_layout",
+    "tile_layout", "uniform_split", "with_layout",
     "RelParams", "RelState", "init_rel_state", "make_rel_params",
     "recovery_split",
     "SweepQuery", "SweepService", "cached_scenario", "load_bundle",

@@ -36,8 +36,9 @@ halo exchange between the halves and share one `draw` per epoch.
 
 Each phase runs inside a span of `repro_torch.trace` (`fleetsim.epoch`
 around `make_step`'s step; `fleetsim.faults`, `fleetsim.links`,
-`fleetsim.reliability`, `fleetsim.cc`, `fleetsim.churn` in the halves),
-which records nothing unless the recorder is on.
+`fleetsim.reliability`, `fleetsim.cc` with `fleetsim.lb` inside it around
+the split update, `fleetsim.churn` in the halves), which records nothing
+unless the recorder is on.
 
 `lax.scan` becomes a Python loop over epochs.  The step branches only on
 Python-level configuration (scheme, which axes are present, single-path)
@@ -384,8 +385,9 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
             # with lb, and stays put without it
             split_new, bad_count = state.split, state.bad_count
             if lb is not None:
-                split_new, bad_count = update_split(split, path_frac,
-                                                    bad_count, pmask, lb)
+                with span("fleetsim.lb"):
+                    split_new, bad_count = update_split(split, path_frac,
+                                                        bad_count, pmask, lb)
                 if rel is None:
                     goodput = goodput * lb.ec_eff   # parity carries no payload
         if rel is not None:

@@ -5,7 +5,10 @@ padded flow -> path -> link hop tensor, and the compiled `RouteLayout` /
 The port of ``repro.fleetsim.links``.  The layout and the path table are
 built host-side in numpy exactly as the reference builds them (same stable
 sorts, same block rounding, the same unique-row factorization), then moved
-to the device once, so every index array equals the reference's.
+to the device once, so every index array equals the reference's.  A grid
+of cells that share one cell's routes gets its layout tiled from that
+cell's on the device (`tile_layout`), equal array for array to the one
+`compute_layout` builds over the stacked routes.
 
 Per-link aggregation (`offered_load`) and the link -> flow gathers have
 four backends (`backend=`):
@@ -51,6 +54,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import fleet_cuda
 from repro_torch.kernels import ref as kref
+from repro_torch.trace import traced
 
 GBPS = 0.125               # bytes per ns per Gbit/s
 RATE_100G = 100 * GBPS
@@ -345,6 +349,125 @@ def compute_layout(routes, n_links: int, *, block: int = CSR_BLOCK,
     return RouteLayout(pad_idx=t(pad_idx), path_mask=t(path_mask),
                        sort_sub=t(sort_sub), link_ptr=t(link_ptr),
                        path_table=pt)
+
+
+def _n_blocked(n: int) -> int:
+    """Entries of a blocked CSR of `n` live entries, padding included."""
+    return max(1, -(-n // CSR_BLOCK)) * CSR_BLOCK
+
+
+def _padded(parts, total: int, fill: int) -> torch.Tensor:
+    """The parts concatenated, then `fill` up to `total` entries."""
+    out = torch.cat([x.reshape(-1) for x in parts])
+    pad = out.new_full((total - out.numel(),), fill)
+    return torch.cat([out, pad])
+
+
+def _tile_path_table(pt: PathTable, n_cells: int, n_links: int,
+                     n_sub: int) -> PathTable:
+    """`tile_layout`'s PathTable (see there)."""
+    seg = pt.seg_idx
+    u, hseg = seg.shape
+    dev = seg.device
+    empty = (seg >= n_links).all(dim=1)
+    has_pad = int(bool(empty[0])) if u else 0
+    e1, e2 = int(pt.seg_ptr[u]), int(pt.llink_ptr[n_links])
+    if bool(empty[has_pad:].any()) or \
+            int(pt.seg_ptr[u + 1]) != _n_blocked(e1) or \
+            pt.seg_gather.numel() != _n_blocked(e1) or \
+            pt.lcsr_gather.numel() != _n_blocked(u * hseg):
+        raise ValueError("tile_layout: the PathTable is padded or blocked "
+                         "otherwise than compute_path_table builds it")
+    b = torch.arange(n_cells, dtype=torch.int32, device=dev)
+    u_real = u - has_pad
+    u_all = has_pad + n_cells * u_real
+
+    def seg_ids(ids):
+        # the all-padding segment (id 0 when there is one) is shared
+        off = (b * u_real).reshape((-1,) + (1,) * ids.dim())
+        return torch.where(ids >= has_pad, ids + off, ids)
+
+    lnk = (b * n_links).reshape(-1, 1, 1)
+    seg_idx = torch.cat([
+        torch.full((has_pad, hseg), n_cells * n_links, dtype=seg.dtype,
+                   device=dev),
+        torch.where(seg[has_pad:] < n_links, seg[has_pad:] + lnk,
+                    n_cells * n_links).reshape(-1, hseg)])
+    # stage 1: cell b's segments list cell b's subflows, in the base order
+    sub = pt.seg_gather.reshape(-1)[:e1]
+    n1 = _n_blocked(n_cells * e1)
+    seg_gather = _padded([sub + (b * n_sub)[:, None]], n1,
+                         n_cells * n_sub).reshape(-1, CSR_BLOCK)
+    seg_ptr = torch.cat([
+        pt.seg_ptr[:has_pad],
+        (pt.seg_ptr[has_pad:u] + (b * e1)[:, None]).reshape(-1),
+        torch.tensor([n_cells * e1, n1], dtype=pt.seg_ptr.dtype,
+                     device=dev)])
+    # stage 2: real hops by link, cell-major; then the scratch hops in
+    # segment order, the shared all-padding segment's first
+    flat = pt.lcsr_gather.reshape(-1)
+    scratch = flat[e2 + has_pad * hseg:u * hseg]
+    n2 = _n_blocked(u_all * hseg)
+    lcsr_gather = _padded(
+        [flat[:e2] + (b * u_real)[:, None], flat[e2:e2 + has_pad * hseg],
+         scratch + (b * u_real)[:, None]], n2, u_all).reshape(-1, CSR_BLOCK)
+    llink_ptr = torch.cat([
+        (pt.llink_ptr[:n_links] + (b * e2)[:, None]).reshape(-1),
+        torch.tensor([n_cells * e2, n2], dtype=pt.llink_ptr.dtype,
+                     device=dev)])
+    return PathTable(
+        pre_id=seg_ids(pt.pre_id).reshape(-1, pt.pre_id.shape[1]),
+        suf_id=seg_ids(pt.suf_id).reshape(-1, pt.suf_id.shape[1]),
+        seg_idx=seg_idx, seg_gather=seg_gather, seg_ptr=seg_ptr,
+        lcsr_gather=lcsr_gather, llink_ptr=llink_ptr)
+
+
+@traced("fleetsim.tile_layout")
+def tile_layout(layout: RouteLayout, n_cells: int,
+                n_links: int) -> RouteLayout:
+    """The layout of `n_cells` copies of one cell's routes stacked
+    block-diagonally (cell b's link ids offset by b·n_links), built on
+    the layout's device from the cell's own `layout` (compiled by
+    `compute_layout` over `n_links` links) with no pass over the stacked
+    routes.  Equal, array for array, to `compute_layout` of the stacked
+    routes with the cell's PathTable kept or not:
+
+      * link ids move by b·L, subflow ids by b·S and segment ids by b·U'
+        (U' the segments other than the all-padding one, which the cells
+        share as segment 0); the scratch index becomes B·L, B·S or the
+        stacked segment count;
+      * every CSR keeps the base's order within a key, since only cell
+        b's entries carry cell b's keys; the scratch-link entries come
+        after every real one, cell-major; the blocked CSRs are padded
+        once, at the end.
+
+    Raises ValueError when the cell's layout is not one that
+    `compute_layout` builds with its default block (a padded PathTable)."""
+    n, p, h = layout.pad_idx.shape
+    n_sub, dev = n * p, layout.pad_idx.device
+    e, real = n_sub * h, int(layout.link_ptr[n_links])
+    if layout.sort_sub.numel() != _n_blocked(e) or \
+            layout.link_ptr.numel() != n_links + 2:
+        raise ValueError("tile_layout: the flat CSR is blocked otherwise "
+                         "than compute_layout builds it")
+    b = torch.arange(n_cells, dtype=torch.int32, device=dev)
+    pad_idx = torch.where(layout.pad_idx < n_links,
+                          layout.pad_idx + (b * n_links).reshape(-1, 1, 1, 1),
+                          n_cells * n_links).reshape(-1, p, h)
+    sub = layout.sort_sub[:e]
+    off = (b * n_sub)[:, None]
+    n_flat = _n_blocked(n_cells * e)
+    sort_sub = _padded([sub[:real] + off, sub[real:] + off], n_flat,
+                       n_cells * n_sub)
+    link_ptr = torch.cat([
+        (layout.link_ptr[:n_links] + (b * real)[:, None]).reshape(-1),
+        torch.tensor([n_cells * real, n_flat], dtype=layout.link_ptr.dtype,
+                     device=dev)])
+    pt = None if layout.path_table is None else _tile_path_table(
+        layout.path_table, n_cells, n_links, n_sub)
+    return RouteLayout(pad_idx=pad_idx,
+                       path_mask=layout.path_mask.repeat(n_cells, 1),
+                       sort_sub=sort_sub, link_ptr=link_ptr, path_table=pt)
 
 
 def with_layout(net: FluidNet, **kw) -> FluidNet:

@@ -31,7 +31,9 @@ array, so a cell's result does not depend on its batch.
 
 **Grid-layout memo.**  The reference skips a warm batch's jit trace; the
 port is eager, and its per-batch set-up is the stacked grid's RouteLayout
-(`links.compute_layout` over the block-diagonal routes).  That layout
+(tiled from cell 0's by `links.tile_layout` when every cell carries cell
+0's routes, else `links.compute_layout` over the block-diagonal routes).
+That layout
 depends only on the cells' routes, their link count and whether they
 carry a PathTable, so the service keeps the layouts it built under
 exactly that key: per cell, in batch order (their count is the rung), a

@@ -11,10 +11,14 @@ n_links L) runs as ONE fluid net of B·F flows and B·L links
 
   * cell b's link ids are offset by b·L, so the routes are block-diagonal
     and no flow of one cell loads a link of another;
-  * the per-flow and per-link arrays are concatenated, and the layout is
-    compiled once over the block-diagonal routes (`links.compute_layout`);
-    a PathTable is kept only when every cell carries one of one shape,
-    else the cells' tables are stripped with the reference's warning;
+  * the per-flow and per-link arrays are concatenated; when every cell
+    carries cell 0's routes (a grid built on one compiled base) the
+    layout is tiled from cell 0's on the device (`links.tile_layout`),
+    else compiled once over the block-diagonal routes
+    (`links.compute_layout`), to the same arrays either way (`LAYOUTS`
+    counts both); a PathTable is kept only when every cell carries one
+    of one shape, else the cells' tables are stripped with the
+    reference's warning;
   * what a cell holds per cell and not per flow: the churn key (the state
     carries (B, 2) keys, and the epoch's churn draw is ONE threefry2x32
     call over (B, F) counters, `prng`), the fault schedule (concatenated,
@@ -70,6 +74,8 @@ from repro_torch.trace import traced
 US = L.US
 _SUM_CHUNK = 1024
 _AXES = ("lb", "churn", "rel", "fault")
+# grid layouts `stack_scenarios` tiled from a cell's own, and compiled
+LAYOUTS = {"tiled": 0, "compiled": 0}
 
 
 def fleet_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -177,6 +183,25 @@ def _cat(tups, cls):
     return cls(*(torch.cat(vs) for vs in zip(*tups)))
 
 
+def _tiled_layout(nets, keep_pt: bool) -> Optional[L.RouteLayout]:
+    """The grid's layout tiled from cell 0's (`links.tile_layout`) when
+    every cell carries cell 0's routes and cell 0 its compiled layout;
+    None when the grid must compile its own."""
+    net0 = nets[0]
+    lay = net0.layout
+    if lay is None or not _same_routes(nets) or not \
+            torch.equal(lay.pad_idx, L._pad_idx(net0._replace(layout=None))):
+        return None
+    if not keep_pt:
+        lay = lay._replace(path_table=None)
+    try:
+        out = L.tile_layout(lay, len(nets), net0.n_links)
+    except ValueError:
+        return None
+    LAYOUTS["tiled"] += 1
+    return out
+
+
 def _stack_nets(nets, layout=None) -> L.FluidNet:
     net0 = nets[0]
     n_cells, nl = len(nets), net0.n_links
@@ -203,8 +228,11 @@ def _stack_nets(nets, layout=None) -> L.FluidNet:
     if layout is None:
         keep_pt = all(n.layout is not None and
                       n.layout.path_table is not None for n in nets)
-        layout = L.compute_layout(routes, n_cells * nl, path_table=keep_pt,
-                                  device=net0.device)
+        layout = _tiled_layout(nets, keep_pt)
+        if layout is None:
+            LAYOUTS["compiled"] += 1
+            layout = L.compute_layout(routes, n_cells * nl,
+                                      path_table=keep_pt, device=net0.device)
     p_loss = None if net0.p_loss is None else \
         torch.cat([n.p_loss for n in nets])
     return L.FluidNet(**per_link, routes=routes, dt=net0.dt, p_loss=p_loss,
@@ -267,10 +295,11 @@ def stack_scenarios(scenarios: Sequence, *, layout=None) -> Grid:
     ladder lengths.  Per-cell PathTables survive only when every cell
     carries one of one shape (`_strip_unstackable_path_tables`).
 
-    `layout`: None compiles the block-diagonal RouteLayout; a RouteLayout
-    built earlier for the same cells' routes is attached as given (the
-    sweep service's memo); False attaches none (the sharded grid compiles
-    one per shard)."""
+    `layout`: None tiles the block-diagonal RouteLayout from cell 0's
+    when every cell carries cell 0's routes, and compiles it otherwise; a
+    RouteLayout built earlier for the same cells' routes is attached as
+    given (the sweep service's memo); False attaches none (the sharded
+    grid compiles one per shard)."""
     cells = [_norm_scenario(s) for s in scenarios]
     if not cells:
         raise ValueError("stack_scenarios: no scenarios")
@@ -380,10 +409,11 @@ def _run_sharded(g: Grid, sf, seeds: np.ndarray, *, scheme: str,
     return _unstack(g, final), rates.reshape(g.n_cells, g.cell_flows)
 
 
-def _same_routes(cells) -> bool:
-    r0 = cells[0][0].routes
-    return all(c[0].routes.shape == r0.shape and torch.equal(c[0].routes, r0)
-               for c in cells[1:])
+def _same_routes(nets) -> bool:
+    r0 = nets[0].routes
+    return all(n.routes is r0 or (n.routes.shape == r0.shape and
+                                  torch.equal(n.routes, r0))
+               for n in nets[1:])
 
 
 def run_grid(scenarios: Sequence, *, scheme: str = "uno",
@@ -415,7 +445,7 @@ def run_grid(scenarios: Sequence, *, scheme: str = "uno",
     _check_axes(cells)
     sd = _grid_seeds(len(cells), seed, seeds)
     sharded = n_shards is not None or group is not None
-    if sharded and not _same_routes(cells):
+    if sharded and not _same_routes([c[0] for c in cells]):
         warnings.warn(
             "run_grid(n_shards=...) needs identical routes across grid "
             "cells to share one ShardPlan; running the grid unsharded",

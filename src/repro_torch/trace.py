@@ -4,12 +4,14 @@ A span marks a stretch of host time in which the port issues one phase
 of its work: the phases of the fluid simulator's epoch step
 (`fleetsim.epoch` around the whole step; inside it `fleetsim.faults`,
 `prng.threefry2x32`, `fleetsim.links`, `fleetsim.reliability`,
-`fleetsim.cc`, `fleetsim.churn`) and of its set-up (`compile.to_fleetsim`
-with `compile.arrays`, `compile.layout`, `compile.rel`, `compile.faults`;
-`fleetsim.make_rel_params`, `fleetsim.make_schedule`,
-`fleetsim.stack_scenarios`, `fleetsim.init_state`, `fleetsim.make_step`;
-`kernels.load`).  A device kernel belongs to the innermost span open when
-the host launched it, so a device trace can be cut by phase.
+`fleetsim.cc` with `fleetsim.lb` inside it, `fleetsim.churn`) and of its
+set-up (`compile.to_fleetsim` with `compile.arrays`, `compile.layout`,
+`compile.rel`, `compile.faults`; `fleetsim.make_rel_params`,
+`fleetsim.make_schedule`, `fleetsim.stack_scenarios` with
+`fleetsim.tile_layout` inside it, `fleetsim.init_state`,
+`fleetsim.make_step`; `kernels.load`).  A device kernel belongs to the
+innermost span open when the host launched it, so a device trace can be
+cut by phase.
 
 The recorder is off until `enable()`; then
 
@@ -32,8 +34,9 @@ the host's: the kernels it launched may run long after it closed.
 
 `counters()` reads the port's existing counters in one dict: the fleet
 and UnoRC kernel launches (`kernels.fleet_cuda.LAUNCHES`,
-`kernels.unorc_cuda.LAUNCHES`) and the threefry2x32 evaluations
-(`fleetsim.prng.CALLS`), which stay where they are.
+`kernels.unorc_cuda.LAUNCHES`), the threefry2x32 evaluations
+(`fleetsim.prng.CALLS`) and the grid layouts tiled or compiled
+(`fleetsim.sweeps.LAYOUTS`), which stay where they are.
 """
 from __future__ import annotations
 
@@ -132,12 +135,13 @@ def drain() -> list:
 def counters() -> dict:
     """The port's counters so far, keyed `<module>.<key>`:
     `fleet_cuda.<kernel>/<use>`, `unorc_cuda.<kernel>[/<use>]`,
-    `prng.threefry2x32`."""
-    from repro_torch.fleetsim import prng
+    `prng.threefry2x32`, `sweeps.tiled`, `sweeps.compiled`."""
+    from repro_torch.fleetsim import prng, sweeps
     from repro_torch.kernels import fleet_cuda, unorc_cuda
     out = {}
     for mod, counts in (("fleet_cuda", fleet_cuda.LAUNCHES),
                         ("unorc_cuda", unorc_cuda.LAUNCHES),
-                        ("prng", prng.CALLS)):
+                        ("prng", prng.CALLS),
+                        ("sweeps", sweeps.LAYOUTS)):
         out.update((f"{mod}.{k}", v) for k, v in counts.items())
     return out

@@ -22,6 +22,12 @@ reference vmaps one simulation over the stacked cells.  Held here:
     `run_grid_streamed` equal to `run_grid`, padding dropped;
   * a grid epoch makes as many threefry2x32 calls and fleet-kernel calls
     as one cell's, whatever B;
+  * a grid built on one compiled base gets its layout tiled from the
+    base's (`links.tile_layout`), array for array the layout compiled
+    over the block-diagonal routes (a flat dumbbell grid; a k=4 fat-tree
+    grid with its PathTable, one cell cap-scaled), and 50 epochs of its
+    step bitwise the same on either; cells whose routes differ still
+    compile; `sweeps.LAYOUTS` counts both;
   * the refusals: mixed axes, mismatched PathTables (warned, flat),
     unknown fault kinds, differing ladder lengths, a sharded grid with
     no shard count (`tests/test_torch_sharded_grid.py` holds the
@@ -466,3 +472,135 @@ def test_mismatched_path_tables_warn_and_fall_back_to_flat():
         g = TW.stack_scenarios([(na, p, None), (nb, p, None)])
     assert g.net.layout.path_table is None
     assert TL._resolve_backend(g.net, "auto") == "reference"
+
+
+# ------------------------------------------------------------ tiled layouts
+
+def _fat_tree_cells(scaled=(1,)):
+    """Three cells of one compiled k=4 fat tree (PathTable attached), the
+    cells in `scaled` with one WAN link's capacity and drain cut to a
+    quarter, as a derate grid builds them."""
+    fs = TS.to_fleetsim(TS.fat_tree_spec(k=4, n_wan=4, n_flows=300, seed=7),
+                        device="cpu")
+    assert fs.net.layout.path_table is not None
+    wan = [s.name for s in TS.fat_tree_spec(k=4, n_wan=4, n_flows=300,
+                                            seed=7).links].index("B0->B1.0")
+    cells = []
+    for b in range(3):
+        net = fs.net
+        if b in scaled:
+            scale = torch.ones_like(net.cap)
+            scale[wan] = 0.25
+            net = net._replace(cap=net.cap * scale, drain=net.drain * scale)
+        cells.append(fs._replace(net=net))
+    return cells
+
+
+def _dumbbell_cells():
+    """Three cells of one compiled multipath dumbbell (flat layout)."""
+    fs = TS.to_fleetsim(TS.dumbbell_scenario(
+        2, 3, multipath=True, n_wan=3), device="cpu")
+    assert fs.net.layout.path_table is None
+    return [fs._replace(params=fs.params._replace(
+        bdp=fs.params.bdp * (1 + b))) for b in range(3)]
+
+
+def _compiled(cells):
+    """The grid of `cells` with its layout compiled over the block-diagonal
+    routes, as a grid whose cells' routes differ gets it."""
+    routes = TW.stack_scenarios(cells, layout=False).net.routes
+    keep_pt = cells[0].net.layout.path_table is not None
+    nl = len(cells) * cells[0].net.n_links
+    return TW.stack_scenarios(cells, layout=TL.compute_layout(
+        routes, nl, path_table=keep_pt, device="cpu"))
+
+
+def _layouts_equal(a, b):
+    for f in TL.RouteLayout._fields:
+        u, v = getattr(a, f), getattr(b, f)
+        if f == "path_table":
+            assert (u is None) == (v is None)
+            if u is not None:
+                _layouts_equal_pt(u, v)
+            continue
+        assert u.dtype == v.dtype and u.shape == v.shape, f
+        assert torch.equal(u, v), f
+
+
+def _layouts_equal_pt(a, b):
+    for f in TL.PathTable._fields:
+        u, v = getattr(a, f), getattr(b, f)
+        assert u.dtype == v.dtype and u.shape == v.shape, f
+        assert torch.equal(u, v), f
+
+
+@pytest.mark.parametrize("kind", ["dumbbell_flat", "fat_tree_pt"])
+def test_tiled_layout_equals_compiled(kind):
+    """A grid built on one compiled base gets its layout tiled from the
+    base's, array for array the layout `compute_layout` compiles over the
+    block-diagonal routes (PathTable included, the all-padding segment
+    shared), and counts as tiled."""
+    cells = _dumbbell_cells() if kind == "dumbbell_flat" else \
+        _fat_tree_cells()
+    before = dict(TW.LAYOUTS)
+    g = TW.stack_scenarios(cells)
+    assert TW.LAYOUTS["tiled"] == before["tiled"] + 1
+    assert TW.LAYOUTS["compiled"] == before["compiled"]
+    _layouts_equal(g.net.layout, _compiled(cells).net.layout)
+    direct = TL.tile_layout(cells[0].net.layout, 3, cells[0].net.n_links)
+    _layouts_equal(direct, g.net.layout)
+    if kind == "fat_tree_pt":
+        pt0, pt = cells[0].net.layout.path_table, g.net.layout.path_table
+        assert bool((pt0.seg_idx >= cells[0].net.n_links).all(1)[0])
+        assert pt.n_segments == 3 * pt0.n_segments - 2
+
+
+def test_tile_layout_refuses_a_padded_path_table():
+    cells = _fat_tree_cells()
+    lay = cells[0].net.layout
+    nl = cells[0].net.n_links
+    padded = TL.compute_path_table(
+        cells[0].net.routes, nl, pad_segments_to=lay.path_table.n_segments
+        + 3, device="cpu")
+    with pytest.raises(ValueError, match="padded"):
+        TL.tile_layout(lay._replace(path_table=padded), 2, nl)
+
+
+def test_cells_with_different_routes_compile():
+    """Cells whose routes differ (a flow's paths reversed in cell 1) get
+    the compiled layout, and count as compiled."""
+    cells = _dumbbell_cells()
+    net1 = cells[1].net
+    r = net1.routes.clone()
+    r[0] = torch.flip(r[0], dims=(0,))
+    cells[1] = cells[1]._replace(net=TL.with_layout(net1._replace(routes=r)))
+    before = dict(TW.LAYOUTS)
+    g = TW.stack_scenarios(cells)
+    assert TW.LAYOUTS["compiled"] == before["compiled"] + 1
+    assert TW.LAYOUTS["tiled"] == before["tiled"]
+    _layouts_equal(g.net.layout, _compiled(cells).net.layout)
+    # an explicit layout, or none, is neither tiled nor compiled
+    TW.stack_scenarios(cells, layout=False)
+    TW.stack_scenarios(cells, layout=g.net.layout)
+    assert TW.LAYOUTS["compiled"] == before["compiled"] + 1
+
+
+@pytest.mark.parametrize("kind", ["dumbbell_flat", "fat_tree_pt"])
+def test_grid_run_bitwise_with_tiled_and_compiled_layout(kind):
+    """50 epochs of the grid's step: the same state, bit for bit, on the
+    tiled and on the compiled layout."""
+    cells = _dumbbell_cells() if kind == "dumbbell_flat" else \
+        _fat_tree_cells()
+    outs = []
+    for g in (TW.stack_scenarios(cells), _compiled(cells)):
+        st = TF.init_state(g.params, g.net.n_links, n_paths=g.net.n_paths,
+                           split0=TF.uniform_split(g.net), seed=[5, 6, 7],
+                           rel=g.rel, fault=g.fault)
+        step = TF.make_step(g.net, g.params, "uno", g.is_inter, lb=g.lb,
+                            churn=g.churn, rel=g.rel, fault=g.fault)
+        for _ in range(50):
+            st, gp = step(st)
+        outs.append((st, gp))
+    (sa, ga), (sb, gb) = outs
+    assert torch.equal(ga, gb)
+    _states_equal(sa, sb, kind)

@@ -7,7 +7,11 @@ Gilbert-Elliott burst on the WAN, RED queues.
     (`fleetsim.faults` around the chains' threefry draw, `fleetsim.links`,
     `fleetsim.reliability`, `fleetsim.cc`), all with the epoch's id;
   * the step's outputs are bitwise the same with the recorder on and off;
-  * the set-up spans open in the order the set-up runs;
+  * the set-up spans open in the order the set-up runs, the grid's tiled
+    layout (`fleetsim.tile_layout`) inside `fleetsim.stack_scenarios`;
+  * on a k=4 fat-tree grid with UnoLB, `fleetsim.lb` inside each epoch's
+    `fleetsim.cc`, the step bitwise the same with the recorder on and
+    off, and `counters()` carrying the grid layouts tiled and compiled;
   * on the card (`gpu`): the spans lie on the profiler's clock (each
     kernel's launch inside its epoch's span), and the recorder adds no
     host sync.
@@ -170,8 +174,75 @@ def test_counters_read_the_existing_counters():
     after = T.counters()
     assert after["prng.threefry2x32"] - before == \
         prng.CALLS["threefry2x32"] - calls > 0
-    assert all(k.split(".", 1)[0] in ("fleet_cuda", "unorc_cuda", "prng")
+    assert all(k.split(".", 1)[0] in ("fleet_cuda", "unorc_cuda", "prng",
+                                      "sweeps")
                for k in after)
+
+
+def _lb_grid():
+    """Two cells of one k=4 fat tree with UnoLB on its inter-DC flows,
+    stacked (the layout tiled) and stepped once to warm up."""
+    from repro_torch.scenarios import fat_tree_spec
+    fs = to_fleetsim(fat_tree_spec(k=4, n_wan=4, n_flows=200, seed=2),
+                     device="cpu")
+    cells = [(fs.net, fs.params, fs.is_inter, fs.lb, fs.churn, fs.rel,
+              fs.fault)] * 2
+    T.enable()
+    g = stack_scenarios(cells)
+    T.disable()
+    setup = T.drain()
+    state = init_state(g.params, g.net.n_links, n_paths=g.net.n_paths,
+                       split0=uniform_split(g.net), seed=[1, 2])
+    step = make_step(g.net, g.params, "uno", g.is_inter, lb=g.lb)
+    step(state)
+    return setup, step, state
+
+
+def test_lb_and_tile_layout_spans():
+    """`fleetsim.tile_layout` opens inside `fleetsim.stack_scenarios`, and
+    `fleetsim.lb` (the split update) inside each epoch's `fleetsim.cc`."""
+    setup, step, state = _lb_grid()
+    names = [r.name for r in setup]
+    assert names == ["fleetsim.stack_scenarios", "fleetsim.tile_layout"]
+    assert setup[1].parent == 0
+    T.enable()
+    for _ in range(2):
+        state, _ = step(state)
+    T.disable()
+    recs = T.drain()
+    lbs = [r for r in recs if r.name == "fleetsim.lb"]
+    assert len(lbs) == 2
+    assert all(recs[r.parent].name == "fleetsim.cc" for r in lbs)
+    assert all(recs[recs[r.parent].parent].name == "fleetsim.epoch"
+               for r in lbs)
+
+
+def test_lb_grid_outputs_bitwise_equal_on_and_off():
+    _, step, state0 = _lb_grid()
+    runs = []
+    for on in (False, True):
+        (T.enable if on else T.disable)()
+        state, outs = state0, []
+        for _ in range(3):
+            state, goodput = step(state)
+            outs += [goodput] + _leaves(state)
+        runs.append(outs)
+    T.disable()
+    assert any(r.name == "fleetsim.lb" for r in T.drain())
+    assert len(runs[0]) == len(runs[1])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_counters_carry_the_grid_layouts():
+    from repro_torch.fleetsim import sweeps
+    before = T.counters()
+    assert before["sweeps.tiled"] == sweeps.LAYOUTS["tiled"]
+    assert before["sweeps.compiled"] == sweeps.LAYOUTS["compiled"]
+    _lb_grid()
+    after = T.counters()
+    assert after["sweeps.tiled"] == before["sweeps.tiled"] + 1
+    assert after["sweeps.compiled"] == before["sweeps.compiled"]
 
 
 def test_traced_keeps_the_function():
