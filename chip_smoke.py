@@ -126,6 +126,15 @@ Phases, each printing one JSON line:
                the plain version's; then `fault_sweep` and
                `recovery_sweep` at those grids for 20 epochs, one launch
                an epoch (paths `rel:*`);
+ 10c. lb_update — (run after phase 10b) UnoLB's split update kernel
+               (`fleet_cuda.LbUpdate`) at wan_derate16's LB tables, 16
+               cells x 500k flows x 8 path slots, seeded on the card
+               (empty slots, repaths, per-flow knobs): bitwise
+               `cc.lb_update_plain` on the same card inputs, the inputs
+               unwritten, no host sync, two runs bitwise equal; median
+               CUDA-event time beside its byte bound (`lb_update_bytes`)
+               and the plain version's (record path: the main path,
+               which launches it once an epoch);
  11. sharded_grid — (run after phase 10) the sharded scenario grid,
                `run_grid(n_shards=2)`: two cells of the main path's fat
                tree, cell 1 its drain what-if (drain x 0.9; the routes
@@ -394,6 +403,8 @@ REL_GRIDS = {
 REL_FLOWS = 100_000          # a cell's inter flows
 REL_INTER_RTT = 2e6          # ns
 REL_RUN_EPOCHS = 20          # epochs of each grid's short run (launch count)
+# UnoLB's split update at fat_tree_k8.wan_derate16's LB tables
+LB_CELLS, LB_CELL_FLOWS, LB_PATHS = 16, 500_000, 8
 # sharded grid: the main path's fat tree and its drain what-if
 # (benchmarks/sweep_server.py:122-126) on 2 stacked shards under cell 0's
 # plan lifted to the grid, psum and nbr; the fault grid above through
@@ -944,6 +955,8 @@ def main_path(fs, dev, spec_s, compile_s, card):
     peak = torch.cuda.max_memory_allocated()
     epochs = N_WARM + N_MEAS
     per_epoch = {k: v / epochs for k, v in PATHS[MAIN_PATH].items()}
+    check(per_epoch.get("lb_update") == 1.0,
+          f"{MAIN_PATH}: UnoLB's kernel per epoch {per_epoch}")
     split_err = _check_state(state, goodput, n, "fat tree")
     errs, single = _backend_agreement(fs, state, ["pt_cuda", "cuda", "pt"],
                                       CHECK_EPOCHS)
@@ -1914,6 +1927,93 @@ def rel_epoch_phase(dev, card):
     return records
 
 
+# ------------------------------------------------------------ lb_update
+
+def lb_update_inputs(dev, n: int, n_paths: int, seed: int = 33):
+    """(lb, fb, mask, split, path_frac, sub_frac, bad_count) for `n`
+    flows over `n_paths` slots, drawn on the card: a tenth of the slots
+    empty (slot 0 always a path), marks and filter gains over [0, 1),
+    bad counts 0-3 against patiences 1-4, so that repaths fire."""
+    import torch
+    from repro_torch.fleetsim.state import LbParams
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *s: torch.rand(s, generator=g, device=dev)  # noqa: E731
+    mask = u(n, n_paths) < 0.9
+    mask[:, 0] = True
+    split = u(n, n_paths) * mask
+    split = split / split.sum(dim=1, keepdim=True)
+    lb = LbParams(eta=0.5 + 19.5 * u(n), repath_thresh=0.05 + 0.55 * u(n),
+                  repath_patience=(1 + 4 * u(n)).int(),
+                  w_floor=0.1 * u(n), ec_eff=torch.ones(n, device=dev))
+    return (lb, u(n), mask, split, u(n, n_paths), u(n, n_paths),
+            (4 * u(n, n_paths)).int() * mask)
+
+
+def lb_update_bytes(n: int, n_paths: int) -> int:
+    """The bytes one LB phase needs, each read or written once: per flow
+    split, path_frac, sub_frac and bad_count read and path_frac', split'
+    and bad_count' written (7 x 4 B a slot), the mask (1 B a slot), fb,
+    eta, the repath threshold and patience and w_floor (20 B)."""
+    return n * (7 * 4 * n_paths + n_paths + 20)
+
+
+def lb_update_phase(dev, card):
+    """UnoLB's split update kernel at wan_derate16's LB tables (`lb_update`
+    line): against the plain version, bitwise, every output of every flow;
+    the inputs unwritten, no host sync, two runs bitwise equal; time and
+    device time beside its byte bound and the plain version's.  Returns
+    the record; its launches are the main path's, one an epoch."""
+    import torch
+    from repro_torch.fleetsim import cc as C
+    from repro_torch.kernels import fleet_cuda as K
+
+    t_phase = time.perf_counter()
+    n = LB_CELLS * LB_CELL_FLOWS
+    args = lb_update_inputs(dev, n, LB_PATHS)
+    lb, fb, mask, *rows = args
+    before = [t.clone() for t in rows]
+    step = K.LbUpdate(lb, fb, mask)
+    K.reset_launches()
+    got = step(*rows)
+    check(K.LAUNCHES["lb_update"] == 1, f"lb_update: {K.LAUNCHES}")
+    want = C.lb_update_plain(*args)
+    differ = {}
+    for name, g, w in zip(("path_frac", "split", "bad_count"), got, want):
+        if not torch.equal(g, w):
+            ulps = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            differ[name] = dict(slots=int((g != w).sum()),
+                                max_ulps=int(ulps.abs().max()))
+    again = step(*rows)
+    repeat = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    unwritten = all(bool(torch.equal(a, b)) for a, b in zip(rows, before))
+    repaths = int(((rows[3] > 0) & (got[2] == 0) & mask).sum())
+    check(not differ and repeat and unwritten and repaths > 0,
+          f"lb_update: differ {differ}, repeat {repeat}, input unwritten "
+          f"{unwritten}, repaths {repaths}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(*rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    del got, want, again, before
+    n_bytes = lb_update_bytes(n, LB_PATHS)
+    rec = dict(
+        name="lb_update@wan_derate16", route="cuda",
+        source="src/repro_torch/kernels/csrc/fleet_kernels.cu",
+        replaces="none (cc.update_split is jnp, fused by XLA)",
+        launches=0, path=MAIN_PATH, counter="lb_update", max_abs_err=None,
+        bitwise_equal=True, repaths=repaths, ms=time_ms(lambda: step(*rows)),
+        plain_ms=time_ms(lambda: C.lb_update_plain(*args)),
+        bound_ms=bound_ms(n_bytes), bound_by="bytes", library_ms=None,
+        bytes=n_bytes, flows=n, paths=LB_PATHS, bytes_per_flow=n_bytes / n,
+        **call_profile(lambda: step(*rows)),
+        plain_profile=call_profile(lambda: C.lb_update_plain(*args)))
+    emit("lb_update", **card, records=[rec],
+         seconds=time.perf_counter() - t_phase)
+    return [rec]
+
+
 # ------------------------------------------------------------- phase 11
 
 def _grid_run(path, fn):
@@ -2241,7 +2341,8 @@ def service_phase(dev, card, records):
         del mixed, res, svc
     stats.pop("cache_dir")
     main_recs = [r for r in records if r["path"] == MAIN_PATH]
-    check(len(main_recs) == 3, "main path: three PathTable records")
+    check(len(main_recs) == 4,
+          "main path: three PathTable records and UnoLB's kernel")
     records += [dict(r, path=cold) for r in main_recs]
     emit("service", **card, fat_tree=FAT_TREE, dumbbell=DUMBBELL,
          n_warm=SVC_WARM, n_meas=SVC_MEAS,
@@ -4035,6 +4136,7 @@ def main() -> int:
     dynamics_phase(dev, card, records, plan)
     records += sweeps_phase(dev, card)
     records += rel_epoch_phase(dev, card)
+    records += lb_update_phase(dev, card)
     records += sharded_grid_phase(fs, dev, card)
     del fs, fs_mp
     service_phase(dev, card, records)

@@ -37,7 +37,7 @@ halo exchange between the halves and share one `draw` per epoch.
 Each phase runs inside a span of `repro_torch.trace` (`fleetsim.epoch`
 around `make_step`'s step; `fleetsim.faults`, `fleetsim.links`,
 `fleetsim.reliability`, `fleetsim.cc` with `fleetsim.lb` inside it around
-the split update, `fleetsim.churn` in the halves), which records nothing
+the LB phase, `fleetsim.churn` in the halves), which records nothing
 unless the recorder is on.
 
 `lax.scan` becomes a Python loop over epochs.  The step branches only on
@@ -47,6 +47,7 @@ control flow), so it stays capturable as a CUDA graph.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -59,6 +60,7 @@ from repro_torch.fleetsim import prng
 from repro_torch.fleetsim import reliability as R
 from repro_torch.fleetsim.state import (ChurnParams, FleetParams, FleetState,
                                         LbParams, init_state)
+from repro_torch.kernels import fleet_cuda
 from repro_torch.trace import span, traced
 
 SCHEMES = ("uno", "gemini", "dctcp")
@@ -120,6 +122,29 @@ def update_split(split: torch.Tensor, path_frac: torch.Tensor,
     return L.normalize_split(w, mask, lb.w_floor), bad_count
 
 
+def lb_update_plain(lb: LbParams, fb: torch.Tensor, mask: torch.Tensor,
+                    split: torch.Tensor, path_frac: torch.Tensor,
+                    sub_frac: torch.Tensor, bad_count: torch.Tensor):
+    """One epoch of the LB phase in torch operations: the per-path mark
+    filter (gain `fb`, (n_flows,)) toward this epoch's `sub_frac`, then
+    `update_split` of the send split `split`.  Returns (path_frac',
+    split', bad_count')."""
+    path_frac = path_frac + fb[:, None] * (sub_frac - path_frac)
+    split, bad_count = update_split(split, path_frac, bad_count, mask, lb)
+    return path_frac, split, bad_count
+
+
+def make_lb_step(lb: LbParams, fb: torch.Tensor, mask: torch.Tensor, *,
+                 plain: bool = False):
+    """`lb_update_plain` with (lb, fb, mask) bound: a function of (split,
+    path_frac, sub_frac, bad_count).  Unless `plain`, the hand-written
+    kernel runs it, one launch an epoch (`fleet_cuda.LbUpdate`, which
+    checks and packs the bound operands once, here)."""
+    if plain:
+        return functools.partial(lb_update_plain, lb, fb, mask)
+    return fleet_cuda.LbUpdate(lb, fb, mask)
+
+
 @traced("fleetsim.make_step")
 def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
               is_inter: Optional[torch.Tensor] = None,
@@ -134,8 +159,9 @@ def make_step(net: L.FluidNet, params: FleetParams, scheme: str = "uno",
     and reports raw goodput; `churn`, `rel` and `fault` switch on their
     axes (module docstring).  `backend` picks the link-aggregation path
     (links.LOAD_BACKENDS); it is resolved once, here.  The reliability
-    phase follows it: the kernel backends run its kernel, the plain ones
-    (`reference`, `pt`) its plain version (`reliability.rel_step`).
+    and LB phases follow it: the kernel backends run their kernels, the
+    plain ones (`reference`, `pt`) their plain versions
+    (`reliability.rel_step`, `lb_update_plain`).
     """
     draw, send, recv = make_step_halves(net, params, scheme, is_inter,
                                         lb=lb, churn=churn, rel=rel,
@@ -183,9 +209,12 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
     pmask = L.path_mask(net)
     single = net.n_paths == 1
     backend = L._resolve_backend(net, backend)
-    if rel is not None:     # the plain link backends run its plain version
-        rel_step = R.make_rel_step(rel, plain=backend in ("reference", "pt"))
+    plain = backend in ("reference", "pt")   # these run the plain versions
+    if rel is not None:
+        rel_step = R.make_rel_step(rel, plain=plain)
     fb = torch.clamp(net.dt / params.rtt, max=1.0)
+    if lb is not None:
+        lb_step = make_lb_step(lb, fb, pmask, plain=plain)
     n_draw = params.bdp.shape[0] if churn_map is None else churn_n
     fresh = p_off = p_on = None
     if churn is not None:
@@ -260,8 +289,6 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
             # feedback lag: first-order filter with time constant = flow RTT
             frac = state.obs_frac + fb * (inst_frac - state.obs_frac)
             delay = state.obs_delay + fb * (inst_delay - state.obs_delay)
-            path_frac = state.path_frac if lb is None else \
-                state.path_frac + fb[:, None] * (sub_frac - state.path_frac)
             acked = goodput * net.dt
 
             # ---- window accumulators ----------------------------------------
@@ -381,13 +408,15 @@ def make_step_halves(net: L.FluidNet, params: FleetParams,
             cwnd = torch.minimum(torch.maximum(cwnd, p.min_cwnd), p.max_cwnd)
 
             # ---- lb axis: adaptive subflow weights --------------------------
-            # the STORED split adapts from this epoch's (degraded) send split
-            # with lb, and stays put without it
-            split_new, bad_count = state.split, state.bad_count
+            # with lb the per-path marks are filtered and the STORED split
+            # adapts from this epoch's (degraded) send split; without it
+            # both stay put
+            split_new, path_frac, bad_count = \
+                state.split, state.path_frac, state.bad_count
             if lb is not None:
                 with span("fleetsim.lb"):
-                    split_new, bad_count = update_split(split, path_frac,
-                                                        bad_count, pmask, lb)
+                    path_frac, split_new, bad_count = lb_step(
+                        split, path_frac, sub_frac, bad_count)
                 if rel is None:
                     goodput = goodput * lb.ec_eff   # parity carries no payload
         if rel is not None:

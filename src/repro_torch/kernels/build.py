@@ -40,7 +40,8 @@ _SIGNATURES = {
               "uno_link_gathers": [_P, _P, _P, _P, _I, _P, _LL, _I, _P],
               "uno_pt_gathers": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _LL,
                                  _LL, _I, _P],
-              "uno_rel_epoch": [_P, _P, _LL, _I, _LL, _I, _I, _P]},
+              "uno_rel_epoch": [_P, _P, _LL, _I, _LL, _I, _I, _P],
+              "uno_lb_update": [_P, _P, _LL, _I, _P]},
     "unorc": {"uno_gf_matmul": [_P, _P, _P, _LL, _I, _I, _LL, _I, _P],
               "uno_quant_int8": [_P, _P, _P, _LL, _LL, _LL, _P],
               "uno_dequant_int8": [_P, _P, _P, _P, _LL, _LL, _LL, _P]},

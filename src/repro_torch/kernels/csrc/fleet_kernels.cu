@@ -12,8 +12,9 @@
 //                                and through it the tiled (n_boundary=)
 //                                branch of path_table_scatter.
 //
-// and one that replaces no TPU kernel, uno_rel_epoch: the epoch step's
-// reliability phase in one pass (note below).
+// and two that replace no TPU kernel, uno_rel_epoch and uno_lb_update: the
+// epoch step's reliability phase and UnoLB's split update, each in one pass
+// over the flows (notes below).
 //
 // The TPU kernels turn the sparse access into one-hot matmuls because the
 // TPU vector unit has no per-lane gather.  Hopper has real gathers, so the
@@ -148,6 +149,38 @@
 // hide the powf chains).
 // Bound: bytes, ~163 a flow with the ladder, 150 + 4 r without;
 // PERF.md has the times.
+
+// uno_lb_update (lb_update_kernel) replaces no TPU kernel either: the
+// reference's cc.update_split and the path-mark filter before it are jnp.
+// It is UnoLB's split update for one epoch (cc.lb_update_plain): the
+// per-path mark filter path_frac' = path_frac + fb (sub_frac - path_frac),
+// the bad-epoch count and the repath it triggers, the multiplicative
+// weights split * exp(-eta path_frac'), and links.normalize_split (clamp,
+// mask, the w_floor / n_valid probe trickle, the row sum, the uniform
+// split where the sum is <= 1e-9).  Eager torch ran it as ~33 kernels over
+// (flows, p) tables, each writing its intermediate to device memory, among
+// them three row sums at about a fifth of the card's byte rate.
+//
+// Bound: bytes; nothing is reused.  Per flow it reads split, path_frac,
+// sub_frac and bad_count (4 x 4p B), the mask (p B), fb and the four
+// LbParams it uses (20 B), and writes path_frac', split' and bad_count'
+// (3 x 4p B): 252 B at p = 8.  So one thread streams one flow,
+// neighbouring threads on neighbouring flows, a block for every 256 flows
+// (a grid-stride loop, which runs once a thread below 2^31 blocks): each
+// row in 16-byte vector loads and stores where p is a multiple of 4 (8-
+// or 4-byte ones otherwise), the mask row in one load of p bytes where p
+// is 1, 2, 4 or 8.  p is a template parameter (1 to 8, the path counts
+// the scenarios sample), so the rows live in registers.  Tried and lost
+// at 8M flows x 8 on an H100 at 700 W: a grid of only the blocks the
+// card holds at once, each looping (0.741 against 0.684 ms), and
+// streaming __ldcs / __stcs accesses (0.817, and 0.756 on the full grid).
+//
+// It is bitwise the plain version on the card: every operation rounded on
+// its own (__f*_rn; nvcc would otherwise contract the filter's multiply
+// and add into an FMA, and an ulp there can flip the repath threshold),
+// IEEE division, expf as torch.exp calls it, torch.maximum's NaN rule,
+// and the row sum in torch.sum's order over a short row (`row_sum`, the
+// order of the reliability kernel's path sum above).
 
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // caller's stream and returns cudaGetLastError() right after the launch.
@@ -797,6 +830,199 @@ void launch_rel_epoch(const RelIn& in, const RelOut& out, int64_t n,
       in, out, n, n_paths, cell_flows, n_rungs);
 }
 
+// ------------------------------------------------------------ lb_update
+
+constexpr int kLbThreads = 256;
+constexpr int kLbMaxPaths = 8;               // fleet_cuda.LB_MAX_PATHS
+constexpr float kSplitEps = 1e-9f;           // links._EPS in float32
+
+// The operands, in the order fleet_cuda.LbUpdate packs them (_LB_IN,
+// _LB_OUT): split, path_frac, sub_frac, bad_count and mask (n, p); fb and
+// the LbParams (n,).
+struct LbIn {
+  const float *split, *path_frac, *sub_frac;
+  const int* bad_count;
+  const uint8_t* mask;
+  const float *fb, *eta, *thresh;
+  const int* patience;
+  const float* w_floor;
+};
+
+struct LbOut {
+  float *path_frac, *split;
+  int* bad_count;
+};
+
+__host__ __device__ constexpr int last_pow2(int p) {
+  return p >= 2 ? 2 * last_pow2(p / 2) : 1;
+}
+
+// The widest access (in elements: 4, 2 or 1) that divides a row of p.
+__host__ __device__ constexpr int row_vec(int p) {
+  return p % 4 == 0 ? 4 : p % 2 == 0 ? 2 : 1;
+}
+
+template <int P>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         float (&v)[P]) {
+  if constexpr (row_vec(P) == 4) {
+#pragma unroll
+    for (int i = 0; i < P / 4; ++i) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p) + i);
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else if constexpr (row_vec(P) == 2) {
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i) {
+      const float2 q = __ldg(reinterpret_cast<const float2*>(p) + i);
+      v[2 * i] = q.x;
+      v[2 * i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) v[i] = __ldg(p + i);
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void store_row(float* __restrict__ p,
+                                          const float (&v)[P]) {
+  if constexpr (row_vec(P) == 4) {
+#pragma unroll
+    for (int i = 0; i < P / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else if constexpr (row_vec(P) == 2) {
+#pragma unroll
+    for (int i = 0; i < P / 2; ++i)
+      reinterpret_cast<float2*>(p)[i] = make_float2(v[2 * i], v[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i) p[i] = v[i];
+  }
+}
+
+// int32 rows move as their bits.
+template <int P>
+__device__ __forceinline__ void load_row(const int* __restrict__ p,
+                                         int (&v)[P]) {
+  float f[P];
+  load_row<P>(reinterpret_cast<const float*>(p), f);
+#pragma unroll
+  for (int i = 0; i < P; ++i) v[i] = __float_as_int(f[i]);
+}
+
+template <int P>
+__device__ __forceinline__ void store_row(int* __restrict__ p,
+                                          const int (&v)[P]) {
+  float f[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) f[i] = __int_as_float(v[i]);
+  store_row<P>(reinterpret_cast<float*>(p), f);
+}
+
+// The mask row of p bools as 0 / 1: one load where p is 1, 2, 4 or 8.
+template <int P>
+__device__ __forceinline__ void load_mask(const uint8_t* __restrict__ p,
+                                          bool (&m)[P]) {
+  unsigned long long bits = 0;
+  if constexpr (P == 8) {
+    bits = __ldg(reinterpret_cast<const unsigned long long*>(p));
+  } else if constexpr (P == 4) {
+    bits = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (P == 2) {
+    bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+      bits |= (unsigned long long)__ldg(p + i) << (8 * i);
+  }
+#pragma unroll
+  for (int i = 0; i < P; ++i) m[i] = ((bits >> (8 * i)) & 0xffu) != 0;
+}
+
+// torch.sum over a row of P: lane x of last_pow2(P) lanes holds a[x] +
+// a[x + lanes], then `pair_sum`.
+template <int P>
+__device__ __forceinline__ float row_sum(const float (&a)[P]) {
+  constexpr int L = last_pow2(P);
+  float v[L];
+#pragma unroll
+  for (int x = 0; x < L; ++x)
+    v[x] = x + L < P ? __fadd_rn(a[x], a[x + L]) : a[x];
+  return pair_sum(v);
+}
+
+// torch.maximum: NaN wins, else the larger.
+__device__ __forceinline__ float maximum(float a, float b) {
+  return isnan(a) ? a : isnan(b) ? b : fmaxf(a, b);
+}
+
+// One epoch of UnoLB's split update (the note at the top of the file).
+template <int P>
+__global__ void __launch_bounds__(kLbThreads)
+lb_update_kernel(LbIn in, LbOut out, int64_t n) {
+  for (int64_t f = (int64_t)blockIdx.x * kLbThreads + threadIdx.x; f < n;
+       f += (int64_t)gridDim.x * kLbThreads) {
+    const int64_t o = f * P;
+    float split[P], pf[P], sf[P], w[P];
+    int bc[P];
+    bool m[P];
+    load_row<P>(in.split + o, split);
+    load_row<P>(in.path_frac + o, pf);
+    load_row<P>(in.sub_frac + o, sf);
+    load_row<P>(in.bad_count + o, bc);
+    load_mask<P>(in.mask + o, m);
+    const float fb = __ldg(in.fb + f), neg_eta = -__ldg(in.eta + f),
+                thresh = __ldg(in.thresh + f),
+                w_floor = __ldg(in.w_floor + f);
+    const int patience = __ldg(in.patience + f);
+    float count = 0.0f;                      // valid paths, exact
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      // the lagged per-path mark fraction
+      pf[j] = __fadd_rn(pf[j], __fmul_rn(fb, __fsub_rn(sf[j], pf[j])));
+      // the bad-epoch count and the repath it triggers
+      const int c = m[j] && pf[j] > thresh ? bc[j] + 1 : 0;
+      const bool repath = c >= patience;
+      bc[j] = repath ? 0 : c;
+      // the multiplicative weights, clamped at 0 and masked
+      const float x = repath ? 0.0f
+                             : __fmul_rn(split[j],
+                                         expf(__fmul_rn(neg_eta, pf[j])));
+      const float mj = m[j] ? 1.0f : 0.0f;
+      w[j] = __fmul_rn(clamp_min(x, 0.0f), mj);
+      count = __fadd_rn(count, mj);
+    }
+    const float n_valid = clamp_min(count, 1.0f);
+    const float trickle = __fdiv_rn(w_floor, n_valid);
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      w[j] = maximum(w[j], __fmul_rn(trickle, m[j] ? 1.0f : 0.0f));
+    const float s = row_sum<P>(w);
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      w[j] = s > kSplitEps ? __fdiv_rn(w[j], s)
+                           : __fdiv_rn(m[j] ? 1.0f : 0.0f, n_valid);
+    store_row<P>(out.path_frac + o, pf);
+    store_row<P>(out.split + o, w);
+    store_row<P>(out.bad_count + o, bc);
+  }
+}
+
+// A block for every 256 flows; the kernel's loop takes over only past
+// INT_MAX blocks.
+template <int P>
+void launch_lb_update(const LbIn& in, const LbOut& out, int64_t n,
+                      cudaStream_t stream) {
+  const int64_t want = (n + kLbThreads - 1) / kLbThreads;
+  const int blocks = (int)(want < INT_MAX ? want : INT_MAX);
+  lb_update_kernel<P><<<blocks, kLbThreads, 0, stream>>>(in, out, n);
+}
+
 }  // namespace
 
 extern "C" {
@@ -884,6 +1110,31 @@ int uno_rel_epoch(const void* const* in_ptrs, void* const* out_ptrs,
       launch_rel_epoch<kRelPerCell>(in, out, n, n_paths, cell_flows,
                                     n_rungs, stream);
       break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// UnoLB's split update (cc.lb_update_plain), one launch.  in_ptrs: the
+// LbIn operands, out_ptrs: the LbOut ones, in those structs' order; n > 0
+// flows of 1 <= n_paths <= kLbMaxPaths paths; every (n, p) row aligned to
+// its vector access (the wrapper checks).
+int uno_lb_update(const void* const* in_ptrs, void* const* out_ptrs,
+                  long long n, int n_paths, cudaStream_t stream) {
+  LbIn in;
+  LbOut out;
+  memcpy(&in, in_ptrs, sizeof(in));
+  memcpy(&out, out_ptrs, sizeof(out));
+  switch (n_paths) {
+#define UNO_LB_CASE(N)                              \
+  case N:                                           \
+    launch_lb_update<N>(in, out, (int64_t)n, stream); \
+    break;
+    UNO_LB_CASE(1) UNO_LB_CASE(2) UNO_LB_CASE(3) UNO_LB_CASE(4)
+    UNO_LB_CASE(5) UNO_LB_CASE(6) UNO_LB_CASE(7) UNO_LB_CASE(8)
+#undef UNO_LB_CASE
+    static_assert(kLbMaxPaths == 8, "one case for each path count");
     default:
       return (int)cudaErrorInvalidValue;
   }

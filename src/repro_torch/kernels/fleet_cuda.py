@@ -30,6 +30,10 @@ exchange (``csrc/fleet_kernels.cu``), replacing the Pallas TPU kernels of
     (`reliability.rel_step`: recovery split, NACK machine, EC ladder,
     goodput split) in one launch.  It replaces no TPU kernel: the
     reference's `reliability.py` is jnp, which XLA fuses.
+  * `LbUpdate` — UnoLB's split update (`cc.lb_update_plain`: the per-path
+    mark filter, the repath count, the multiplicative weights and the
+    simplex projection) in one launch.  It replaces no TPU kernel either:
+    the reference's `cc.update_split` is jnp.
 
 Device rule: a wrapper given CPU tensors runs its kernel's plain version
 (`repro_torch.kernels.ref`); given CUDA tensors it launches the kernel or
@@ -515,3 +519,94 @@ def rel_epoch(rel, st, rate: torch.Tensor, rtx: torch.Tensor,
     ladder, else ``rel_epoch/ladder``.  A step that runs it every epoch
     builds `RelEpoch(rel)` once."""
     return RelEpoch(rel)(st, rate, rtx, split, sub_loss, sc, dt, rtt)
+
+
+# ------------------------------------------------------------- lb_update
+
+# uno_lb_update's operands in the order of LbIn / LbOut in
+# fleet_kernels.cu: the (n, p) state rows, then the mask, the filter gain
+# and the LbParams it reads; out, the new path_frac, split and bad_count.
+_LB_ROWS = ("split", "path_frac", "sub_frac", "bad_count")
+_LB_KNOBS = ("fb", "eta", "repath_thresh", "repath_patience", "w_floor")
+LB_MAX_PATHS = 8        # fleet_kernels.cu instantiates p = 1 .. 8
+
+
+def _check_lb_align(t: torch.Tensor, name: str, p: int):
+    """Raise unless `t`'s rows of `p` are aligned for `lb_update_kernel`'s
+    vector access: float and int32 rows in 16-, 8- or 4-byte pieces (the
+    widest that divides the row), the mask row in one p-byte load where p
+    is 1, 2, 4 or 8, else byte by byte."""
+    if t.dtype == torch.bool:
+        align = p if p in (1, 2, 4, 8) else 1
+    else:
+        align = 4 * (4 if p % 4 == 0 else 2 if p % 2 == 0 else 1)
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: rows must be {align}-byte aligned for "
+                         f"the kernel's vector access")
+
+
+class LbUpdate:
+    """``lb_update_kernel``'s launch for one LbParams `lb`, filter gain
+    `fb` ((n,) f32, the flows' dt / rtt clamped at 1) and path mask ((n,
+    p) bool, 1 <= p <= LB_MAX_PATHS): checked and their pointers packed
+    once, here, so that a call checks only the four state rows.
+
+    A call takes this epoch's send split, the stored path_frac, the
+    epoch's sub_frac ((n, p) f32) and the stored bad_count ((n, p) int32)
+    and returns (path_frac', split', bad_count') in fresh tensors, bitwise
+    `cc.lb_update_plain`'s on the card; the inputs are never written.
+    CPU operands run that plain version; CUDA ones launch the kernel once,
+    counted as ``lb_update``, or raise."""
+
+    def __init__(self, lb, fb: torch.Tensor, mask: torch.Tensor):
+        _check(mask, "mask", torch.bool, 2)
+        n, p = mask.shape
+        if not 1 <= p <= LB_MAX_PATHS:
+            raise ValueError(f"mask: {p} paths, lb_update_kernel takes 1 to "
+                             f"{LB_MAX_PATHS}")
+        knobs = (fb, lb.eta, lb.repath_thresh, lb.repath_patience,
+                 lb.w_floor)
+        for name, t in zip(_LB_KNOBS, knobs):
+            _check(t, name, torch.int32 if name == "repath_patience"
+                   else torch.float32, 1)
+            if t.shape[0] != n:
+                raise ValueError(f"{name}: expected {n} rows, got "
+                                 f"{t.shape[0]}")
+        if _on_cuda(mask, *knobs):
+            _check_lb_align(mask, "mask", p)
+        self.lb, self.fb, self.mask, self.n, self.p = lb, fb, mask, n, p
+        self.in_ptrs = [mask.data_ptr()] + [t.data_ptr() for t in knobs]
+
+    def __call__(self, split: torch.Tensor, path_frac: torch.Tensor,
+                 sub_frac: torch.Tensor, bad_count: torch.Tensor):
+        n, p = self.n, self.p
+        rows = (split, path_frac, sub_frac, bad_count)
+        for name, t in zip(_LB_ROWS, rows):
+            _check(t, name, torch.int32 if name == "bad_count"
+                   else torch.float32, 2)
+            if t.shape != (n, p):
+                raise ValueError(f"{name}: expected ({n}, {p}), got "
+                                 f"{tuple(t.shape)}")
+        if not _on_cuda(self.mask, *rows):
+            from repro_torch.fleetsim.cc import lb_update_plain
+            return lb_update_plain(self.lb, self.fb, self.mask, *rows)
+        for name, t in zip(_LB_ROWS, rows):
+            _check_lb_align(t, name, p)
+        dev = split.device
+        out = (torch.empty((n, p), dtype=torch.float32, device=dev),
+               torch.empty((n, p), dtype=torch.float32, device=dev),
+               torch.empty((n, p), dtype=torch.int32, device=dev))
+        if n == 0:
+            return out
+        from repro_torch.kernels import build
+        lib = build.load("fleet")
+        ins = [t.data_ptr() for t in rows] + self.in_ptrs
+        outs = [t.data_ptr() for t in out]
+        ins = (ctypes.c_void_p * len(ins))(*ins)
+        outs = (ctypes.c_void_p * len(outs))(*outs)
+        err = lib.uno_lb_update(ctypes.addressof(ins), ctypes.addressof(outs),
+                                n, p,
+                                torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "uno_lb_update")
+        LAUNCHES["lb_update"] += 1
+        return out

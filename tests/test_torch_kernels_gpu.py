@@ -6,7 +6,9 @@ PathTable gathers at shard 0 of the sharded grid (two k=8, 100k-flow fat
 trees under cell 0's plan lifted to the grid); the reliability kernel
 (`rel_epoch`) bitwise `reliability.rel_step`'s plain version in its three
 ladder forms, at both benchmark cells' shapes, at shard 0 of the sharded
-fault grid and on 3 to 8 paths.
+fault grid and on 3 to 8 paths; UnoLB's split update kernel
+(`fleet_cuda.LbUpdate`) bitwise `cc.lb_update_plain` on 1 to 8 paths, at
+wan_derate16's LB tables, and as the LB phase of a fat tree's step.
 
 This file imports no JAX, so that it runs on the machine with the card:
 
@@ -29,7 +31,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import lb_cases as LC  # noqa: E402
 import rel_cases as RC  # noqa: E402
+from repro_torch.fleetsim import cc as TC  # noqa: E402
 from repro_torch.fleetsim import links as TL  # noqa: E402
 from repro_torch.fleetsim import reliability as TR  # noqa: E402
 from repro_torch.fleetsim import shard as TSH  # noqa: E402
@@ -469,3 +473,94 @@ def test_rel_epoch_matches_plain_version_at_a_grid_shard_on_card(dev):
     rest = [t[idx] if t.dim() else t for t in args[2:]]
     got = _no_sync(lambda: TR.rel_step(rel, st, *rest))
     _rel_against_plain((rel, st, *rest), got, "fault_sweep128:shard0")
+
+
+# ------------------------------------------------------------- lb_update
+
+LB_CASES = {   # name: (n_paths, flows)
+    "1path:tail": (1, 100_003),
+    "2paths": (2, 100_000),
+    "3paths": (3, 50_001),
+    "4paths": (4, 60_000),
+    "6paths:tail": (6, 30_001),
+    "8paths:tail": (8, 200_003),
+}
+
+
+def _lb_against_plain(args, got, what):
+    """The kernel's (path_frac', split', bad_count') against the plain
+    version's on the same card inputs: every slot bitwise equal (the
+    kernel rounds each operation alone and sums in torch.sum's order,
+    fleet_kernels.cu)."""
+    want = TC.lb_update_plain(*args)
+    for name, g, w in zip(("path_frac", "split", "bad_count"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, name)
+        if not torch.equal(g, w):
+            ulps = (g.view(torch.int32).long() - w.view(torch.int32).long())
+            pytest.fail(f"{what}: {name} differs in {int((g != w).sum())} "
+                        f"of {g.numel()} slots, {int(ulps.abs().max())} "
+                        f"ulps at most")
+
+
+def _lb_call(args, what):
+    """One kernel call on `args` checked as `_lb_against_plain`, plus: one
+    launch, no host sync, the inputs unwritten, two runs equal."""
+    lb, fb, mask, *rows = args
+    before = [t.clone() for t in (fb, mask, *rows, *lb)]
+    step = fleet_cuda.LbUpdate(lb, fb, mask)
+    launches = fleet_cuda.LAUNCHES["lb_update"]
+    got = _no_sync(lambda: step(*rows))
+    assert fleet_cuda.LAUNCHES["lb_update"] == launches + 1, what
+    _lb_against_plain(args, got, what)
+    for a, b in zip((fb, mask, *rows, *lb), before):
+        assert torch.equal(a, b), f"{what}: an input was written"
+    _equal(step(*rows), got, what + " twice")
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(LB_CASES))
+def test_lb_update_matches_plain_version_on_card(dev, case):
+    """UnoLB's split update kernel bitwise its plain version on 1 to 8
+    path slots, on the edge rows of `lb_cases` (empty slots, marks on the
+    threshold, repaths, zero-sum rows, exp underflow), with tails past
+    the last full block."""
+    p, n = LB_CASES[case]
+    args = LC.lb_inputs(n, p, seed=n + p, device=dev)
+    _, split, bad_count = _lb_call(args, case)
+    mask, old_bad = args[2], args[6]
+    assert bool(((old_bad > 0) & (bad_count == 0) & mask)[2::16].any())
+    assert torch.equal(split * ~mask, torch.zeros_like(split))
+
+
+@pytest.mark.gpu
+def test_lb_update_matches_plain_version_at_wan_derate16_on_card(dev):
+    """wan_derate16's LB tables: 16 cells x 500,000 flows x 8 slots, the
+    cells' knobs drawn apart, the grid-stride loop many times round."""
+    args = LC.lb_inputs(16 * 500_000, 8, seed=16, device=dev)
+    _lb_call(args, "wan_derate16")
+
+
+@pytest.mark.gpu
+def test_lb_phase_of_a_fat_tree_step_on_card(dev, monkeypatch):
+    """A k=4 fat tree's step on `pt_cuda` with the kernel as its LB phase,
+    one launch an epoch, against the same step with the plain LB phase:
+    states bitwise equal after 300 epochs, repaths and all."""
+    import repro_torch.fleetsim as TF
+    import repro_torch.scenarios as TS
+    fs = TS.to_fleetsim(TS.fat_tree_spec(k=4, n_wan=4, n_flows=40,
+                                         n_paths=4, seed=2), device=dev)
+    net = TL.with_layout(fs.net, path_table=True)
+    run = dict(n_epochs=300, is_inter=fs.is_inter, lb=fs.lb,
+               backend="pt_cuda")
+    launches = fleet_cuda.LAUNCHES["lb_update"]
+    kernel, _ = TF.simulate(net, fs.params, **run)
+    assert fleet_cuda.LAUNCHES["lb_update"] == launches + 300
+    make = TC.make_lb_step
+    monkeypatch.setattr(TC, "make_lb_step",
+                        lambda *a, plain=False: make(*a, plain=True))
+    want, _ = TF.simulate(net, fs.params, **run)
+    assert fleet_cuda.LAUNCHES["lb_update"] == launches + 300
+    for f in ("split", "path_frac", "bad_count", "cwnd", "q_phys"):
+        assert torch.equal(getattr(kernel, f), getattr(want, f)), f
+    assert not torch.equal(kernel.split, TL.uniform_split(net))

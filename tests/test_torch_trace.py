@@ -200,7 +200,8 @@ def _lb_grid():
 
 def test_lb_and_tile_layout_spans():
     """`fleetsim.tile_layout` opens inside `fleetsim.stack_scenarios`, and
-    `fleetsim.lb` (the split update) inside each epoch's `fleetsim.cc`."""
+    `fleetsim.lb` (the path-mark filter and the split update) inside each
+    epoch's `fleetsim.cc`."""
     setup, step, state = _lb_grid()
     names = [r.name for r in setup]
     assert names == ["fleetsim.stack_scenarios", "fleetsim.tile_layout"]
